@@ -1,11 +1,11 @@
-"""spike_petsc_tpu — a TPU-native SPIKE banded linear-solver framework.
+"""spike_petsc_tpu — a SPIKE banded linear-solver framework for CUDA GPUs.
 
 Built from scratch in JAX/Pallas with the capabilities of spikegpu/spike-petsc
 (reference analysed in SURVEY.md): reordering/scaling pipeline (MC64 WBM,
 AWBM, Fiedler, RCM, spectral partitioning), norm-fraction banded extraction,
 composable KSP/PC solver layer, the SPIKE partitioned banded kernel itself,
-and multi-chip execution over `jax.sharding` meshes with ICI collectives
-replacing the reference's PETSc/MPI communication.
+and multi-device execution over `jax.sharding` meshes whose collectives
+replace the reference's PETSc/MPI communication.
 """
 
 __version__ = "0.1.0"

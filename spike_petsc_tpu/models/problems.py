@@ -168,7 +168,7 @@ def general_sparse(n: int, density: float = 5e-3, seed: int = 0,
 def blocktri_diagdom_device(n: int, kl: int, ku: int, K: int, b: int,
                             seed: int = 0, dtype="float32"):
     """Diagonally-dominant random banded matrix assembled DIRECTLY in global
-    block-tridiagonal (p-major) layout on device — the native TPU assembly
+    block-tridiagonal (p-major) layout on device — the native-assembly
     path for spike_factor_blocks.
 
     Statistically the bench problem (uniform(-1,1) band entries, diagonal =

@@ -49,8 +49,7 @@ def _bwd(kl, ku, K, res, g):
     sf, x = res
     lam = spike_solve(spike_transpose(sf), g)       # A^{-T} g
     # band-restricted outer product: ddata[i, d] = -lam[i] * x[i + d - kl],
-    # built from w shifted slices (TPU gathers are ~0.2 GB/s; see
-    # banded_matvec)
+    # built from w shifted slices (streamed, no gather; see banded_matvec)
     n = x.shape[0]
     w = kl + ku + 1
     xpad = jnp.pad(x, (kl, ku))

@@ -1,8 +1,8 @@
-"""Banded matrix storage and core operations (TPU-native layout).
+"""Banded matrix storage and core operations.
 
 The reference stores banded approximations as general sparse AIJ matrices and
 re-extracts them per run (`MatCreateSubMatrixBanded`,
-/root/reference/src/matbanded.c:22-107).  On TPU we instead keep a dense
+/root/reference/src/matbanded.c:22-107).  Here we instead keep a dense
 *diagonal-offset* layout
 
     data[i, d] == A[i, i + d - kl]   for d in [0, kl + ku],
@@ -10,10 +10,11 @@ re-extracts them per run (`MatCreateSubMatrixBanded`,
 i.e. row ``i`` of ``data`` holds the in-band entries of row ``i`` of ``A``
 left-aligned at offset ``-kl``.  Out-of-range positions are zero.  This layout
 
-* is a single contiguous ``[n, w]`` array in HBM (``w = kl + ku + 1``),
+* is a single contiguous ``[n, w]`` array in device memory
+  (``w = kl + ku + 1``),
 * turns SpMV into ``w`` shifted axpys (or one gather + row reduction),
 * reshapes for free into block-tridiagonal form (see ``blocktri.py``) whose
-  factorization runs on the MXU as batched ``b x b`` matmuls.
+  factorization runs as batched ``b x b`` matmuls.
 
 Everything here is jittable; host-side sparse preprocessing lives in
 ``spike_petsc_tpu.sparse``.
@@ -106,8 +107,8 @@ def banded_transpose(b: BandedMatrix) -> BandedMatrix:
 
     dataT[i, j'] = data[i + j' - ku, (w-1) - j']: each transposed diagonal
     is a row-shifted copy of the mirrored source diagonal — w static
-    shifted slices (a 2-D gather here ran at ~0.2 GB/s on TPU; see
-    banded_matvec).  Very wide bands keep the gather (setup-time only).
+    shifted slices, streamed without a gather.  Very wide bands keep the
+    gather (setup-time only).
     """
     n, kl, ku = b.n, b.kl, b.ku
     w = b.width
@@ -144,9 +145,9 @@ def banded_matvec(b: BandedMatrix, x: jax.Array) -> jax.Array:
     """y = A @ x for band storage: w shifted axpys
     y[i] = sum_d data[i, d] * x[i + d - kl].
 
-    The unrolled shifted-slice form fuses into one elementwise XLA kernel;
-    the window-GATHER formulation it replaces ran at ~0.2 GB/s on TPU v5e
-    (4.9 s at N=1e6 bw=201 vs 39 ms for this one — TPU gathers are scalar).
+    The unrolled shifted-slice form fuses into one elementwise XLA kernel
+    that streams the band once (no gather).  On the H100 it was the faster
+    of this form and a diagonal-major [w, n] copy of the band (PERF.md).
     Very wide bands fall back to a fori_loop over diagonals to keep the
     program size bounded.  Supports x of shape [n] or [n, nrhs].
     """
@@ -188,7 +189,7 @@ def banded_diagonal_scale(b: BandedMatrix, dr=None, dc=None) -> BandedMatrix:
 
     Row scaling is a broadcast multiply; column scaling multiplies each
     stored diagonal by a shifted slice of ``dc`` (same shifted-slice pattern
-    as :func:`banded_matvec` — a per-entry gather is pathological on TPU).
+    as :func:`banded_matvec`, with no per-entry gather).
     Jittable; returns a new matrix (inputs are never mutated).
     """
     data = b.data

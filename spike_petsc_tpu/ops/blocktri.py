@@ -1,19 +1,19 @@
-"""Block-tridiagonal representation and factorization — the MXU compute core.
+"""Block-tridiagonal representation and factorization — the compute core.
 
-Design note (TPU-first): a banded matrix with half-bandwidths kl, ku <= b is
+Design note: a banded matrix with half-bandwidths kl, ku <= b is
 *exactly* a block-tridiagonal matrix with dense ``b x b`` blocks.  Classic
 banded LU (what PETSc's LU does on the extracted band the reference builds in
 /root/reference/src/matbanded.c:165-192) is a scalar recurrence over rows —
-hostile to the MXU.  Block-Thomas factorization instead does, per block row,
+hostile to matrix units.  Block-Thomas factorization instead does, per block row,
 
     F_i = L_i @ inv(S_{i-1}),     S_i = D_i - F_i @ U_{i-1},
 
 i.e. two ``b x b`` matmuls and one small factorization, and the whole sweep is
-a ``lax.scan`` of batched MXU matmuls.  Within-block partial pivoting (inside
+a ``lax.scan`` of batched matmuls.  Within-block partial pivoting (inside
 ``inv``/``lu_factor``) gives *better* stability than strict no-pivot banded
 LU, while the block structure keeps zero fill outside the band blocks.
 
-With ``b`` padded to 128 this is speed-of-light work for the MXU; SPIKE
+With ``b`` padded to 128 these are full-width batched products; SPIKE
 (``spike.py``) then batches K independent such sweeps over the partition axis.
 """
 
@@ -62,7 +62,7 @@ class BlockTriFactor:
     """Block-Thomas factorization state (a pytree; safe to jit through).
 
     method == "inv": Sinv holds explicit Schur-complement inverses; solves are
-    pure batched matmuls (fastest on MXU).
+    pure batched matmuls.
     method == "lu":  Slu/piv hold LAPACK-style LU factors of each S_i; solves
     use pivoted triangular solves (preferred for ill-conditioned f64 runs).
     method == "spd": symmetric (Hermitian) block-LDL^H — only F and Sinv are
@@ -125,9 +125,7 @@ def band_to_blocktri(band: BandedMatrix, b: int) -> BlockTridiagonal:
     Implementation: a pad-and-reshape "skew" — row p of each block is shifted
     right by p via flattening a width-``Wp`` row buffer and re-viewing it at
     width ``Wp - 1`` — after which the D/L/U blocks are *static contiguous
-    slices*.  Pure layout ops; the gather formulation this replaces lowered
-    to a 69 ms dynamic-gather at the bench config vs ~5 ms for the skew
-    (experiments/lab_factor_dissect.py, v5e, N=1e6 bw=201).
+    slices*.  Pure layout ops, no gather.
     """
     if band.kl > b or band.ku > b:
         raise ValueError(f"block size {b} must cover half-bandwidths "
@@ -196,7 +194,7 @@ def blocktri_to_dense(t: BlockTridiagonal) -> jax.Array:
 def blocktri_matvec(t: BlockTridiagonal, x: jax.Array) -> jax.Array:
     """y_i = L_i x_{i-1} + D_i x_i + U_i x_{i+1}.
 
-    x: [nb, b] or [nb, b, r].  Three batched MXU matmuls — this is the SpMV
+    x: [nb, b] or [nb, b, r].  Three batched matmuls — this is the SpMV
     used inside Krylov loops (replacing PETSc AIJ MatMult,
     /root/reference/src/testbed.c:310).
     """
@@ -215,6 +213,12 @@ def blocktri_matvec(t: BlockTridiagonal, x: jax.Array) -> jax.Array:
 # ---------------------------------------------------------------------------
 # Factorization
 # ---------------------------------------------------------------------------
+
+# factor and LU-sweep block products in full working precision: DEFAULT
+# lets the GPU run f32 products in TF32 (about three decimal digits), which
+# would make an "f32" factor preconditioner-grade
+_mm = partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
+
 
 def boost_diag(s: jax.Array, shift_amount, zeropivot: float = 1e-10):
     """Diagonal-shift guard for a batch of blocks [..., b, b]: pivots whose
@@ -247,7 +251,7 @@ def blocktri_factor(t: BlockTridiagonal, method: str = "inv",
     """Block-Thomas factorization via lax.scan.
 
     Scan carry is the previous Schur complement (or its inverse); each step is
-    MXU matmuls plus one b x b inversion/LU.  No outer pivoting — the
+    batched matmuls plus one b x b inversion/LU.  No outer pivoting — the
     reordering/scaling pipeline (MC64/AWBM, §ordering) is responsible for
     diagonal dominance, exactly as in the reference solve pipeline.
 
@@ -278,8 +282,8 @@ def blocktri_factor(t: BlockTridiagonal, method: str = "inv",
         def step(carry, blocks):
             s_prev_inv, nsh = carry
             d, l, u_prev = blocks
-            f = l @ s_prev_inv
-            s = d - f @ u_prev
+            f = _mm(l, s_prev_inv)
+            s = d - _mm(f, u_prev)
             s, nbad = guard(s)
             s_inv = batched_inverse(s[None], inverter)[0]
             return (s_inv, nsh + nbad), (f, s_inv)
@@ -292,7 +296,7 @@ def blocktri_factor(t: BlockTridiagonal, method: str = "inv",
         F = jnp.concatenate([jnp.zeros((1, b, b), dtype), f_rest], axis=0)
         Sinv = jnp.concatenate([s0_inv[None], sinv_rest], axis=0)
         # zero-size placeholders: carrying full-size unused fields would
-        # waste GBs of HBM at production sizes
+        # waste GBs of device memory at production sizes
         z = jnp.zeros((nb, 0, 0), dtype)
         zp = jnp.zeros((nb, 0), jnp.int32)
         return BlockTriFactor(F=F, U=t.U, Sinv=Sinv, Slu=z, piv=zp,
@@ -309,8 +313,8 @@ def blocktri_factor(t: BlockTridiagonal, method: str = "inv",
         def step(carry, blocks):
             s_prev_inv, nsh = carry
             d, l = blocks
-            f = l @ s_prev_inv
-            s = d - f @ tH(l)
+            f = _mm(l, s_prev_inv)
+            s = d - _mm(f, tH(l))
             # re-symmetrize: inexact inverters (Newton) leave O(eps)
             # asymmetry that would otherwise compound down the recursion
             s = 0.5 * (s + tH(s))
@@ -335,7 +339,7 @@ def blocktri_factor(t: BlockTridiagonal, method: str = "inv",
             d, l, u_prev = blocks
             # F_i = L_i @ inv(S_{i-1})  ==  solve(S_{i-1}^T, L_i^T)^T
             f = jsl.lu_solve((s_prev_lu, s_prev_piv), l.T, trans=1).T
-            s = d - f @ u_prev
+            s = d - _mm(f, u_prev)
             s, nbad = guard(s)
             s_lu, s_piv = jsl.lu_factor(s)
             return (s_lu, s_piv, nsh + nbad), (f, s_lu, s_piv)
@@ -363,9 +367,9 @@ def blocktri_factor_inv_waux(t: BlockTridiagonal, y0: jax.Array,
     """``blocktri_factor(method='inv')`` with a fused auxiliary forward
     sweep: alongside the Schur recursion the scan carries
     ``y_i = -F_i @ y_{i-1}`` (``y_0`` given) — the W-spike forward sweep of
-    ``ops.spike._spike_columns`` computed while ``F_i`` is still on-chip,
-    instead of a second 0.5 GB re-read pass over the stacked F blocks
-    (~15 ms at the bench config).  Returns ``(fact, y)`` with ``y``
+    ``ops.spike._spike_columns`` computed while ``F_i`` is still in
+    registers, instead of a second 0.5 GB re-read pass over the stacked F
+    blocks at the flagship size.  Returns ``(fact, y)`` with ``y``
     stacked ``[nb, *y0.shape]``.
 
     Numerically identical to the unfused pair (same ops, same order); the
@@ -390,8 +394,8 @@ def blocktri_factor_inv_waux(t: BlockTridiagonal, y0: jax.Array,
     def step(carry, blocks):
         s_prev_inv, y_prev, nsh = carry
         d, l, u_prev = blocks
-        f = l @ s_prev_inv
-        s = d - f @ u_prev
+        f = _mm(l, s_prev_inv)
+        s = d - _mm(f, u_prev)
         s, nbad = guard(s)
         s_inv = batched_inverse(s[None], inverter)[0]
         y = -_sweep_matvec(f, y_prev)
@@ -419,7 +423,7 @@ def _skew_block_rows(X: jax.Array, b: int, kl: int, ku: int):
     granularity (``Y[r, j] = X[r, j - r - b + kl]``; leaked reads land in
     the zero padding because ``b >= ku``): run INSIDE the factor scan it
     converts while the rows are on-chip, so neither the global skew
-    intermediate nor the [nb, b, b] L/D/U blocks ever hit HBM."""
+    intermediate nor the [nb, b, b] L/D/U blocks ever reach device memory."""
     W2 = 3 * b + 1
     Z = jnp.pad(X, ((0, 0), (b - kl, W2 - (b - kl) - X.shape[-1])))
     Y = Z.reshape(-1)[: 3 * b * b].reshape(b, 3 * b)
@@ -434,11 +438,11 @@ def blocktri_factor_inv_waux_band(local_band: jax.Array, y0: jax.Array,
 
     ``local_band``: one partition's band rows ``[nb, b, w]`` (a free
     reshape of diagonal-offset storage).  Each scan step skews its
-    ``[b, w]`` row block to dense ``(l, d, u)`` blocks in VMEM and feeds
-    the Schur recursion directly, so the only HBM traffic the conversion
-    adds is the band read itself (~0.8 GB at the bench config) instead of
-    the materialized skew + block writes of ``band_to_blocktri`` (~45 ms
-    of ``tpu_factor_ms``, VERDICT r4 weak/next #3).  The boundary
+    ``[b, w]`` row block to dense ``(l, d, u)`` blocks inside the step and
+    feeds the Schur recursion directly, so the only memory traffic the
+    conversion adds is the band read itself (~0.8 GB at the flagship size)
+    instead of the materialized skew + block writes of
+    ``band_to_blocktri``.  The boundary
     semantics match ``band_to_blocktri`` exactly: block 0's L is never
     read, the last block's U is zeroed in the emitted factor.
 
@@ -454,8 +458,8 @@ def blocktri_factor_inv_waux_band(local_band: jax.Array, y0: jax.Array,
     def step(carry, X):
         s_prev_inv, y_prev, u_prev = carry
         l, d, u = _skew_block_rows(X, b, kl, ku)
-        f = l @ s_prev_inv
-        s = d - f @ u_prev
+        f = _mm(l, s_prev_inv)
+        s = d - _mm(f, u_prev)
         s_inv = batched_inverse(s[None], inverter)[0]
         y = -_sweep_matvec(f, y_prev)
         return (s_inv, y, u), (f, s_inv, y, u_prev)
@@ -482,8 +486,7 @@ def blocked_inv(S: jax.Array, base: int = 32) -> jax.Array:
 
     XLA's batched ``jnp.linalg.solve`` lowers to a pivoted-LU loop of n
     steps of narrow vector work; this recursion replaces most of it with
-    MXU matmuls (base-case LUs only at ``base`` size).  Measured 1.5x faster
-    at [7872, 128, 128] f32 on v5e with identical max|SX - I|.
+    batched matmuls (base-case LUs only at ``base`` size).
 
     No pivoting ACROSS the 2x2 block split — valid in this framework's
     operating regime (post-MC64-scaling diagonal dominance, preserved by
@@ -514,9 +517,8 @@ def newton_inv(S: jax.Array, tol: Optional[float] = None,
                max_steps: int = 16, init: str = "jacobi") -> jax.Array:
     """Batched inverse via Newton–Schulz iteration X <- X (2I - S X).
 
-    Pure batched MXU matmuls — measured 10.7x faster than the blocked-Schur
-    recursion at [8128, 128, 128] f32 on v5e (29.6 vs 316 ms) with BETTER
-    accuracy (max|SX-I| 2.4e-7 vs 8.9e-7).  The error contracts
+    Pure batched matmuls; on the H100 the flagship factor is faster with it
+    than with the pivoted-LU inverse (measured in PERF.md).  The error contracts
     quadratically: E_{k+1} = E_k^2 with E = I - S X.
 
     init="jacobi" (X0 = inv(diag S)) converges iff the Jacobi iteration
@@ -578,12 +580,11 @@ def _newton_inv_jvp(tol, max_steps, init, primals, tangents):
 def newton_inv_fixed(S: jax.Array, cheap_steps: int = 10,
                      polish_steps: int = 2) -> jax.Array:
     """Newton–Schulz with a FIXED precision schedule: ``cheap_steps`` at
-    DEFAULT MXU precision (single-pass bf16 — the iteration is
+    DEFAULT precision (TF32 products for f32 on the GPU — the iteration is
     self-correcting, E_{k+1} = E_k^2 contracts any low-precision noise)
     then ``polish_steps`` at HIGHEST to set the final accuracy.  No
     convergence check: removes the while_loop's serialized max-reduce +
-    branch from the factor scan's critical path (experiments/
-    lab_newton_prec.py: same max|SX-I| = 2.4e-7 as the all-HIGHEST run).
+    branch from the factor scan's critical path.
     Use only in the diagonally-dominant regime; `newton_inv` remains the
     adaptive/guarded default."""
     b = S.shape[-1]
@@ -608,15 +609,22 @@ def _newton_inv_fixed_jvp(cheap_steps, polish_steps, primals, tangents):
     return X, -mm(X, mm(dS, X))
 
 
+def resolve_inverter(inverter: str) -> str:
+    """'auto' -> the engine the platform seam picks for this backend
+    (utils.platform.default_inverter); other names pass through."""
+    if inverter == "auto":
+        from ..utils.platform import default_inverter
+        return default_inverter()
+    return inverter
+
+
 def batched_inverse(S: jax.Array, inverter: str = "auto") -> jax.Array:
-    """Dispatch: 'newton' Newton–Schulz iteration (TPU-fast, needs the
-    near-diagonally-dominant regime the scaling pipeline provides),
+    """Dispatch: 'newton' Newton–Schulz iteration (batched products; needs
+    the near-diagonally-dominant regime the scaling pipeline provides),
     'newton_fixed' fixed-schedule Newton (no convergence check, cheap
     steps at DEFAULT precision + HIGHEST polish), 'blocked' Schur
-    recursion, 'lapack' pivoted LU, 'auto' = newton on TPU, lapack
-    elsewhere."""
-    if inverter == "auto":
-        inverter = "newton" if jax.default_backend() == "tpu" else "lapack"
+    recursion, 'lapack' pivoted LU, 'auto' = :func:`resolve_inverter`."""
+    inverter = resolve_inverter(inverter)
     if inverter == "newton":
         return newton_inv(S)
     if inverter == "newton_fixed":
@@ -629,24 +637,12 @@ def batched_inverse(S: jax.Array, inverter: str = "auto") -> jax.Array:
         S, jnp.broadcast_to(jnp.eye(S.shape[-1], dtype=S.dtype), S.shape))
 
 
-# Sweep matvec engine: "mxu" routes b x b @ b x r through dot (127/128 MXU
-# columns idle at r=1 — per-pass latency dominates); "vpu" uses an
-# elementwise multiply + lane reduction, full f32 on the vector unit.
-_SWEEP_MATVEC_MODE = "mxu"
-
-
-def set_sweep_matvec(mode: str) -> None:
-    global _SWEEP_MATVEC_MODE
-    assert mode in ("mxu", "vpu")
-    _SWEEP_MATVEC_MODE = mode
-
-
 def sweep_precision(*operands):
     """Matmul precision for solve-sweep math: HIGHEST when every operand is
-    a >= 32-bit float (the sweeps are memory-bound, so the extra MXU passes
-    are free — and XLA's DEFAULT lowers f32 matrix-matrix products to
-    single-pass bf16, which costs ~1.5 digits on multi-RHS solves);
-    DEFAULT when any operand is stored bf16 (already bf16-native)."""
+    a >= 32-bit float (the sweeps are memory-bound, so full-precision
+    products cost little — and DEFAULT may run f32 products in TF32, which
+    keeps about three decimal digits); DEFAULT when any operand is stored
+    bf16 (already a reduced-precision operand)."""
     if all(jnp.dtype(o.dtype).itemsize >= 4 for o in operands):
         return jax.lax.Precision.HIGHEST
     return jax.lax.Precision.DEFAULT
@@ -654,8 +650,6 @@ def sweep_precision(*operands):
 
 def _sweep_matvec(m, v):
     """y[a, r] = sum_b m[a, b] v[b, r] (plus leading batch dims via vmap)."""
-    if _SWEEP_MATVEC_MODE == "vpu":
-        return jnp.sum(m[..., :, :, None] * v[..., None, :, :], axis=-2)
     return jnp.matmul(m, v, precision=sweep_precision(m, v))
 
 
@@ -678,9 +672,7 @@ def blocktri_solve(fact: BlockTriFactor, rhs: jax.Array,
 
     rhs: [nb, b] or [nb, b, r].  Forward scan eliminates with F, reverse scan
     back-substitutes with S^{-1} and U — all batched matmuls for method "inv".
-    ``unroll`` is exposed for experimentation; measured on v5e, unroll > 1
-    REGRESSES the sweep (~10 ms -> 16 ms at N=1e6): the unrolled body breaks
-    XLA's cross-iteration prefetch pipelining. Keep 1.
+    ``unroll`` is exposed for experimentation.
     """
     squeeze = rhs.ndim == 2
     if squeeze:
@@ -727,7 +719,7 @@ def blocktri_solve(fact: BlockTriFactor, rhs: jax.Array,
     else:
         def bwd(x_next, inputs):
             slu, piv, u, yi = inputs
-            x = jsl.lu_solve((slu, piv), yi - u @ x_next)
+            x = jsl.lu_solve((slu, piv), yi - _mm(u, x_next))
             return x, x
         x_last = jsl.lu_solve((fact.Slu[-1], fact.piv[-1]), y[-1])
         _, x_rest = jax.lax.scan(
@@ -752,8 +744,8 @@ def transposed_factor_from_blocks(fact: BlockTriFactor,
     substituting z_i = Sinv_i^T w_i into the U^T L^T sweeps of
     blocktri_solve_transpose).  Unlike the TransposedBlockTriFactor marker
     (which forces the XLA scan), the result is an ordinary 'inv' factor —
-    on TPU the fused manual-DMA Pallas sweep applies, so transpose solves
-    run at forward-solve speed.  Works batched over leading dims.
+    the Pallas sweep kernels apply on the GPU, so transpose solves run at
+    forward-solve speed.  Works batched over leading dims.
 
     Needs the original L blocks (only L is read from ``blocks``), and
     materializes a full second factor (~the forward factor's footprint) —

@@ -5,9 +5,9 @@ one small batched inversion — the factor's latency is nb sequential LU
 lowerings.  Cyclic reduction restructures the elimination into log2(nb)
 *levels*: each level eliminates every even-indexed block unknown at once, so
 the level's inversions happen in ONE large batched call ([ne, b, b]) and the
-matmuls are big MXU batches.  Same no-pivot stability regime as block-Thomas
+matmuls are big batches.  Same no-pivot stability regime as block-Thomas
 (within-block pivoting via the batched LU inside jnp.linalg.solve), ~2x the
-flops and stored blocks — the classic latency-for-throughput TPU trade.
+flops and stored blocks — the classic latency-for-throughput trade.
 
 Used for (a) the SPIKE reduced interface system at large partition counts,
 where the Thomas scan over K-1 blocks dominates solve latency, and (b) as an
@@ -32,7 +32,7 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 
-from .blocktri import BlockTridiagonal, batched_inverse, boost_diag
+from .blocktri import BlockTridiagonal, _mm, batched_inverse, boost_diag
 
 
 @jax.tree_util.register_dataclass
@@ -108,11 +108,11 @@ def cr_factor(t: BlockTridiagonal, shift: str = "none",
             nsh = nsh + nbad
         Dinv_e = batched_inverse(De, inverter)
         # odd row j = 2t+1: left even t, right even t+1
-        P = Lo @ Dinv_e[:-1]
-        Q = Uo @ Dinv_e[1:]
-        D_new = Do - P @ Ue[:-1] - Q @ Le[1:]
-        L_new = -(P @ Le[:-1])
-        U_new = -(Q @ Ue[1:])
+        P = _mm(Lo, Dinv_e[:-1])
+        Q = _mm(Uo, Dinv_e[1:])
+        D_new = Do - _mm(P, Ue[:-1]) - _mm(Q, Le[1:])
+        L_new = -_mm(P, Le[:-1])
+        U_new = -_mm(Q, Ue[1:])
         levels.append(CRLevel(Dinv_e=Dinv_e, P=P, Q=Q, L_e=Le, U_e=Ue))
         D, L, U = D_new, L_new, U_new
     Droot = D[0]

@@ -3,12 +3,12 @@
 This is the solver kernel the reference repo *wraps but does not contain* —
 spike-petsc preconditions for the external SPIKEGPU library
 (/root/reference/src/HOWTO:2 ``-cublas 0``; SURVEY.md §0).  Here it is built
-natively, TPU-first:
+natively:
 
 * The banded matrix is split into K row partitions.  Each partition is an
   independent banded system -> K block-Thomas factorizations batched over the
   partition axis (``vmap`` over ``blocktri_factor``), i.e. every scan step is
-  a ``[K, b, b]`` batched MXU matmul.
+  a ``[K, b, b]`` batched matmul.
 * The couplings between neighbouring partitions are k x k corner "tips"
   (B_p to the next partition, C_p to the previous one, k = max(kl, ku)).
 * Spike columns V_p = A_p^{-1} E_bot B_p and W_p = A_p^{-1} E_top C_p are
@@ -95,8 +95,7 @@ def _skew_tip(rows: jax.Array, off: int, k: int) -> jax.Array:
     """``out[..., r, c] = rows[..., r, off - r + c]`` for ``c in [0, k)`` —
     the per-row -r shift done as ONE flatten + re-view at width-1 (the same
     pad-and-reshape skew as band_to_blocktri), instead of k per-row static
-    slices: each tiny slice is a separate HBM op on TPU and k=100 of them
-    cost ~36 ms at the bench config vs ~1 ms for the skew.
+    slices (each tiny slice would be a separate device op).
 
     Requires ``0 <= off - r + c < rows.shape[-1]`` for the used index range
     (callers pad ``rows`` so out-of-band reads land in zeros).
@@ -141,14 +140,13 @@ def reduced_factor(red: BlockTridiagonal, method: str, reduced: str = "auto",
 
     Large partition counts make the block-Thomas scan over K-1 reduced
     blocks the solve's latency floor; cyclic reduction solves it in log2(K)
-    levels of batched MXU work instead (ops/cyclic.py), keeping solve
+    levels of batched work instead (ops/cyclic.py), keeping solve
     latency flat in K — the same role recursion plays in recursive SPIKE.
     ``reduced``: "thomas", "cr", or "auto" (cr when the reduced system has
     >= ``cr_threshold`` block rows or the partition factorization itself is
     CR).  The default threshold suits the replicated distributed reduced
-    solve; the single-chip path passes a higher one — measured on v5e
-    (experiments/lab_kscale.py, N=1e6 bw=201): thomas 2.8/3.4/3.8/5.3 ms vs
-    cr 3.5/3.4/3.6/3.9 at K=64/128/256/512, so CR only wins past K~256.
+    solve; the single-device path passes a higher one (255).  The
+    crossover on the H100 is not measured.
     """
     use_cr = reduced == "cr" or method == "cr" or (
         reduced == "auto" and red.nb >= cr_threshold)
@@ -181,11 +179,11 @@ def _spike_factor_impl(data, *, n, kl, ku, K, block_b, method, truncated,
 
     Btip, Ctip = _extract_tips(band.data, K, m, k, kl, ku)
 
-    # Folded-conversion fast path (VERDICT r4 next #3): for the default
-    # method='inv' factor the band->blocktri conversion rides the factor
-    # scan itself (blocktri_factor_inv_waux_band skews each [b, w] row
-    # block in VMEM), so neither the global skew intermediate nor the
-    # materialized L/D/U blocks hit HBM.  Falls back to the materialized
+    # Folded-conversion fast path: for the default method='inv' factor the
+    # band->blocktri conversion rides the factor scan itself
+    # (blocktri_factor_inv_waux_band skews each [b, w] row block inside the
+    # step), so neither the global skew intermediate nor the materialized
+    # L/D/U blocks reach device memory.  Falls back to the materialized
     # conversion when shifting (the shift scale heuristic needs
     # max|blocks|) or when the L blocks must be kept (store_lt).
     if method == "inv" and K > 1 and shift == "none" and not store_lt:
@@ -219,9 +217,8 @@ def _band_to_blocks_chunked(band: BandedMatrix, K: int, m: int, b: int,
                             kl: int, ku: int) -> BlockTridiagonal:
     """Per-partition band -> blocktri conversion, chunked over partition
     groups so the skew intermediate ([m, w + ~3b] per partition) stays
-    bounded: unchunked it peaks at ~3x the block storage and OOMs a 16 GB
-    chip near N=2e6 at the bench bandwidth.  ``band`` must already be
-    padded to K*m rows."""
+    bounded: unchunked it peaks at ~3x the block storage.  ``band`` must
+    already be padded to K*m rows."""
     local = band.data.reshape(K, m, band.width)
     to_blocks = jax.vmap(
         lambda d: band_to_blocktri(BandedMatrix(data=d, kl=kl, ku=ku), b))
@@ -358,11 +355,10 @@ def spike_factor_blocks(T: BlockTridiagonal, n: int, K: int, kl: int,
                         spike_dtype=None,
                         store_lt: bool = False) -> SpikeFactor:
     """Factor a banded matrix already assembled in GLOBAL block-tridiagonal
-    (p-major) layout — the native TPU assembly path.
+    (p-major) layout — the native-assembly path.
 
-    The band-storage entry (``spike_factor``) spends ~1/3 of its factor time
-    on the band->blocktri layout conversion, which is access-pattern-bound
-    on TPU (~50-80 GB/s for the 800B-strided skew; ROADMAP r2 item 4).
+    The band-storage entry (``spike_factor``) first converts the band to
+    block-tridiagonal layout (an access-pattern-bound strided skew).
     Problems assembled directly in blocktri layout (models.problems.
     blocktri_diagdom_device, or any stencil assembly emitting [NB, b, b]
     blocks) skip it entirely: partitioning is a reshape, cross-partition
@@ -501,13 +497,10 @@ def spike_factor_grouped(band: BandedMatrix, K: int, groups: int,
     Partitions are independent, so each group's full-precision
     intermediates (block conversion, factor scan, spike sweeps) are freed
     before the next group runs — peak memory is the FINAL factor storage
-    plus one group's working set, instead of everything at once.  This is
-    what lets N=4e6 x bw=201 factor on one 16 GB chip: bf16 PC mode at
-    groups>=8, and FULL f32 storage at groups>=16 (measured on v5e:
-    12.6 GB at rest, relres 8.3e-5; the monolithic path OOMs near N=2e6
-    f32).  Same result as spike_factor up to f32 summation order
-    (bit-identical in practice: per-partition math is unchanged, only
-    batching differs).
+    plus one group's working set, instead of everything at once, which
+    lets factorizations fit that a single program could not.  Same result
+    as spike_factor up to f32 summation order (bit-identical in practice:
+    per-partition math is unchanged, only batching differs).
     """
     if K % groups or groups < 1:
         raise ValueError(f"groups={groups} must divide K={K}")
@@ -528,9 +521,8 @@ def spike_factor_grouped(band: BandedMatrix, K: int, groups: int,
     # avoid); only the last group's slice needs row padding.
     # Group results are written into PREALLOCATED full-K buffers via a
     # donated dynamic_update_slice (in-place on device) — the end-of-loop
-    # concatenate this replaces transiently doubled the factor footprint,
-    # which is what blocked f32 storage at N=4e6 on a 16 GB chip
-    # (ROADMAP r3 item 4; the bf16 path fit either way).
+    # concatenate this replaces transiently doubled the factor footprint;
+    # now the peak is the at-rest factor plus one group's working set.
     @partial(jax.jit, donate_argnums=0)
     def _acc(out_tree, piece_tree, g):
         return jax.tree_util.tree_map(
@@ -597,9 +589,10 @@ def spike_factor(band: BandedMatrix, K: int, block_b: Optional[int] = None,
     Args:
       band: banded matrix in diagonal-offset storage.
       K: number of partitions (1 = plain block-Thomas direct solve).
-      block_b: MXU block size (defaults to the tip size; use 128 on TPU).
+      block_b: block size (defaults to the tip size; the flagship uses 128,
+        which the Pallas sweep kernels take).
       method: per-partition factorization — "inv" (block-Thomas with stored
-        Schur inverses, MXU-fast solves), "lu" (pivoted LU factors, f64
+        Schur inverses, matmul-only solves), "lu" (pivoted LU factors, f64
         parity), "cr" (cyclic reduction: log-depth factor latency,
         ~2x stored blocks), or "spd" (symmetric/Hermitian block-LDL^H for
         SPD matrices: stores only F + Sinv = 2/3 of "inv"'s factor memory,
@@ -623,13 +616,14 @@ def spike_factor(band: BandedMatrix, K: int, block_b: Optional[int] = None,
       spike_dtype: downcast ONLY the stored V/W spikes (e.g. jnp.bfloat16)
         while factors stay full precision.  The spikes carry a rank-k
         boundary correction on top of an exact local solve, so bf16 spikes
-        cost ~5x residual (8e-5 -> 4e-4 at the bench config) for ~0.8 GB
-        less per-solve streaming — a cheap preconditioner-grade mode.
+        trade some residual for ~0.8 GB less per-solve streaming at the
+        flagship size — a cheap preconditioner-grade mode.
       inverter: batched-inverse engine for the Schur/CR blocks — "newton"
-        (Newton–Schulz, TPU-fast, needs the near-diagonally-dominant regime
-        the scaling pipeline provides), "blocked", "lapack", or "auto"
-        (newton on TPU, lapack elsewhere).  If factor_health reports a bad
-        newton factorization, re-factor with inverter="blocked".
+        (Newton–Schulz, batched matmuls, needs the near-diagonally-dominant
+        regime the scaling pipeline provides), "blocked", "lapack", or
+        "auto" (newton on the GPU, lapack elsewhere: utils.platform).  If
+        factor_health reports a bad newton factorization, re-factor with
+        inverter="blocked".
       store_lt: keep the subdiagonal blocks L ([K, nb, b, b], at
         store_dtype) so ``spike_transpose`` can build the REGULAR-form
         (fused-kernel-capable) transpose factor with no band and no
@@ -679,8 +673,7 @@ def _spike_columns(fact, Btip, Ctip, nb: int, b: int, k: int, dtype):
     structure: V's forward sweep is free (its RHS is nonzero only in the last
     block, so y_V = e_{nb-1} x B-rows), and V and W share one combined
     backward sweep — factors stream once for the forward (F) and once for
-    the backward (Sinv, U) instead of twice each (58 -> ~25 ms at the bench
-    config, experiments/lab_factor_dissect.py).  Other factor types take the
+    the backward (Sinv, U) instead of twice each.  Other factor types take the
     generic two-solve path.
     """
     from .blocktri import _sweep_matvec as mv
@@ -818,7 +811,7 @@ def spike_transpose(sf: SpikeFactor, reduced: str = "auto",
         from .blocktri import transposed_factor_from_blocks
         bpad = pad_banded(band, K * sf.m)
         # same chunked conversion as the forward factor (the unchunked skew
-        # intermediate OOMs a 16 GB chip near N=2e6; code-review r3)
+        # intermediate peaks at ~3x the block storage)
         blocks = _band_to_blocks_chunked(bpad, K, sf.m, b, band.kl, band.ku)
         factT = transposed_factor_from_blocks(sf.fact, blocks)
     else:
@@ -860,7 +853,8 @@ def _reduced_solve(sf: SpikeFactor, g_bot: jax.Array, g_top: jax.Array):
     K, k = sf.K, sf.k
     rhs = jnp.concatenate([g_bot[:-1], g_top[1:]], axis=1)   # [K-1, 2k]
     if sf.truncated:
-        z = jnp.einsum("jpq,jq->jp", sf.red_Dinv, rhs)
+        z = jnp.einsum("jpq,jq->jp", sf.red_Dinv, rhs,
+                       precision=sweep_precision(sf.red_Dinv, rhs))
     else:
         z = _solve_reduced_system(sf.red_fact, rhs)
     x_bot = z[:, :k]        # x_p^bot for p = 0..K-2
@@ -871,69 +865,56 @@ def _reduced_solve(sf: SpikeFactor, g_bot: jax.Array, g_top: jax.Array):
     return xbot_prev, xtop_next
 
 
-def _rhs_itemsize(rhs_dtype) -> int:
-    """VMEM itemsize of the sweep carry for a given rhs dtype (the kernel
-    promotes to the f32-or-wider result type; an f64 rhs doubles the vector
-    scratch — ADVICE r2: the feasibility check must see the same size the
-    kernel will allocate, or 'auto' can pick pallas and then raise)."""
-    return jnp.dtype(jnp.result_type(rhs_dtype, jnp.float32)).itemsize
-
-
-def _resolve_impl(sf: SpikeFactor, impl: str, rhs_dtype=jnp.float32) -> str:
-    """'auto' picks the fused manual-DMA Pallas sweep when it applies
-    (TPU, method='inv' block-Thomas factors, lane-aligned block size, and
-    the per-partition VMEM scratch feasible — small-K/large-nb factors
-    fall back to the XLA scan instead of overflowing VMEM); otherwise the
-    XLA scan path."""
-    if impl != "auto":
-        return impl
+def _resolve_impl(sf: SpikeFactor, impl: str, rhs_dtype=jnp.float32,
+                  interpret: bool = False) -> str:
+    """'auto' picks the Pallas sweep kernels when the backend runs them
+    (utils.platform) and the factors suit them (ops/pallas/fused_sweep.py:
+    method='inv'/'spd', f32/bf16 storage, f32 rhs); otherwise the XLA
+    scan.  An explicit 'pallas_fused' raises where it cannot run."""
+    from ..utils import platform
     from .pallas.fused_sweep import fused_sweep_feasible
-    if jax.default_backend() == "tpu" and fused_sweep_feasible(
-            sf.fact, sf.b, rhs_itemsize=_rhs_itemsize(rhs_dtype)):
-        return "pallas_fused"
-    return "xla"
+    if impl == "auto":
+        if platform.gpu_kernels_available() and fused_sweep_feasible(
+                sf.fact, sf.b, rhs_dtype):
+            return "pallas_fused"
+        return "xla"
+    if impl == "xla":
+        return impl
+    if impl != "pallas_fused":
+        raise ValueError(f"unknown solve impl {impl!r}: expected 'auto', "
+                         f"'xla' or 'pallas_fused'")
+    platform.require_gpu_kernels("impl='pallas_fused'", interpret)
+    return impl
 
 
-def _require_inv_factors(sf: SpikeFactor, impl: str) -> None:
-    # the fused kernel has an spd variant (transposed-F backward sweep);
-    # the grid-pipelined 'pallas' kernels are inv-only
-    ok = ("inv", "spd") if impl == "pallas_fused" else ("inv",)
-    if not (isinstance(sf.fact, BlockTriFactor) and sf.fact.method in ok):
-        raise ValueError(
-            f"impl={impl!r} requires method={'/'.join(ok)!r} block-Thomas "
-            f"factors; got {type(sf.fact).__name__} (use impl='xla' or "
-            f"refactor with spike_factor(..., method='inv'))")
-
-
-def _make_batched_solve(sf: SpikeFactor, impl: str):
-    if impl == "pallas":
-        from .pallas.sweeps import blocktri_solve_batched_pallas
-        _require_inv_factors(sf, impl)
-        return partial(blocktri_solve_batched_pallas, sf.fact)
+def _make_batched_solve(sf: SpikeFactor, impl: str, many: bool = False,
+                        interpret: bool = False):
     if impl == "pallas_fused":
-        from .pallas.fused_sweep import blocktri_solve_fused_pallas
-        _require_inv_factors(sf, impl)
-        return partial(blocktri_solve_fused_pallas, sf.fact)
+        from .pallas.fused_sweep import (blocktri_solve_fused_many_pallas,
+                                         blocktri_solve_fused_pallas)
+        kern = (blocktri_solve_fused_many_pallas if many
+                else blocktri_solve_fused_pallas)
+        return partial(kern, sf.fact, interpret=interpret)
     return partial(_batched_tri_solve, sf.fact)
 
 
-@partial(jax.jit, static_argnames=("impl",))
-def spike_solve(sf: SpikeFactor, rhs: jax.Array,
-                impl: str = "auto") -> jax.Array:
+@partial(jax.jit, static_argnames=("impl", "interpret"))
+def spike_solve(sf: SpikeFactor, rhs: jax.Array, impl: str = "auto",
+                interpret: bool = False) -> jax.Array:
     """Solve A x = rhs with a SPIKE factorization.  rhs: [n] (original size).
 
-    impl: "auto" (fused Pallas sweep when applicable, else XLA),
-    "xla" (lax.scan sweeps), "pallas" (grid-pipelined sweep kernels,
-    ops/pallas/sweeps.py), or "pallas_fused" (single-kernel manual-DMA
-    fwd+bwd sweeps, ops/pallas/fused_sweep.py — 727 GB/s measured on v5e
-    vs 213 for the scan).  Pallas impls require method='inv' factors.
+    impl: "auto" (the Pallas sweep kernels where the backend and factors
+    allow, else XLA), "xla" (lax.scan sweeps), or "pallas_fused" (one
+    program per partition walking its block chain in-kernel,
+    ops/pallas/fused_sweep.py; CUDA GPUs only).  ``interpret`` runs the
+    kernels in the Pallas interpreter (tests).
     """
     K, m, b, k, nb = sf.K, sf.m, sf.b, sf.k, sf.nb
     rp = jnp.zeros((K * m,), rhs.dtype).at[:sf.n].set(rhs)
     rblk = rp.reshape(K, nb, b)
 
-    impl = _resolve_impl(sf, impl, rhs.dtype)
-    batched_solve = _make_batched_solve(sf, impl)
+    impl = _resolve_impl(sf, impl, rhs.dtype, interpret)
+    batched_solve = _make_batched_solve(sf, impl, interpret=interpret)
 
     g = batched_solve(rblk)                                  # [K, nb, b]
     if K == 1:
@@ -961,44 +942,26 @@ def spike_solve(sf: SpikeFactor, rhs: jax.Array,
     return x.reshape(-1)[:sf.n]
 
 
-@partial(jax.jit, static_argnames=("impl",))
-def spike_solve_many(sf: SpikeFactor, rhs: jax.Array,
-                     impl: str = "auto") -> jax.Array:
+@partial(jax.jit, static_argnames=("impl", "interpret"))
+def spike_solve_many(sf: SpikeFactor, rhs: jax.Array, impl: str = "auto",
+                     interpret: bool = False) -> jax.Array:
     """Blocked multi-RHS solve; rhs [n, r] -> x [n, r].
 
     Streams the factorization ONCE for all right-hand sides (the sweeps are
     factor-read-bound, so r solves cost barely more than one) — the batched
     solve mode of BASELINE config 2 and the serving path.
 
-    impl: "auto" (fused multi-RHS Pallas kernel when applicable, else XLA),
-    "xla", "pallas"/"pallas_fused" (ops/pallas/fused_sweep.py multi-RHS
-    kernel; method='inv' factors, lane-aligned blocks).
+    impl / interpret: as for ``spike_solve`` (the multi-RHS kernel runs
+    16 columns per program).
     """
     K, m, b, k, nb = sf.K, sf.m, sf.b, sf.k, sf.nb
     r = rhs.shape[1]
     rp = jnp.zeros((K * m, r), rhs.dtype).at[:sf.n].set(rhs)
     rblk = rp.reshape(K, nb, b, r)
 
-    resolved = _resolve_impl(sf, impl, rhs.dtype)
-    if impl == "auto" and resolved == "pallas_fused":
-        # the fused kernel wins only while ONE VMEM-sized RHS chunk covers r
-        # (measured v5e crossover, experiments/lab_serving.py: pallas 0.42 vs
-        # xla 0.52 ms/solve at r=32, but 0.35 vs 0.19 at r=128 — chunking
-        # re-streams the factors, the XLA scan streams them once for all r)
-        from .pallas.fused_sweep import _pick_kt_many
-        cdtype = jnp.result_type(rhs.dtype, jnp.float32)
-        _, rc = _pick_kt_many(sf.K, nb, b, r,
-                              jnp.dtype(sf.fact.F.dtype).itemsize, 4,
-                              jnp.dtype(cdtype).itemsize)
-        if rc < r:
-            resolved = "xla"
-    impl = resolved
-    if impl in ("pallas", "pallas_fused"):
-        from .pallas.fused_sweep import blocktri_solve_fused_many_pallas
-        _require_inv_factors(sf, impl)
-        batched_solve = partial(blocktri_solve_fused_many_pallas, sf.fact)
-    else:
-        batched_solve = partial(_batched_tri_solve, sf.fact)
+    impl = _resolve_impl(sf, impl, rhs.dtype, interpret)
+    batched_solve = _make_batched_solve(sf, impl, many=True,
+                                        interpret=interpret)
 
     g = batched_solve(rblk)                                  # [K, nb, b, r]
     if K == 1:
@@ -1008,7 +971,8 @@ def spike_solve_many(sf: SpikeFactor, rhs: jax.Array,
     g_top = g[:, 0, :k, :]
     red_rhs = jnp.concatenate([g_bot[:-1], g_top[1:]], axis=1)  # [K-1,2k,r]
     if sf.truncated:
-        z = jnp.einsum("jpq,jqr->jpr", sf.red_Dinv, red_rhs)
+        z = jnp.einsum("jpq,jqr->jpr", sf.red_Dinv, red_rhs,
+                       precision=sweep_precision(sf.red_Dinv, red_rhs))
     else:
         z = _solve_reduced_system(sf.red_fact, red_rhs)
     zk = jnp.zeros((1, k, r), z.dtype)

@@ -1,17 +1,16 @@
-"""Band + outliers split operator: TPU-native SpMV for general sparse.
+"""Band + outliers split operator: streamed SpMV for general sparse.
 
 The reference's production workloads are general AIJ matrices (SuiteSparse
 fixtures, /root/reference/src/testbed.c:3-8) whose MatMult is the Krylov
 hot loop (/root/reference/src/testbed.c:310).  After the WBM/RCM pipeline
 most of the weight sits in a central band, but scattered outliers keep the
-matrix from being strictly banded — and a BCOO device operator pays TPU's
-scalar gather/scatter cost on EVERY nonzero (~0.2 GB/s measured).  Split
+matrix from being strictly banded — and a BCOO device operator pays
+gather/scatter cost on EVERY nonzero.  Split
 
     A  =  B (band, diagonal-offset storage)  +  R (outlier remainder, COO)
 
-and the n*(2k+1) band entries stream at vector speed (shifted-slice XLA or
-the Pallas banded kernel) while only the few outliers pay the scalar
-gather + segment-sum path.  The split is EXACT — unlike ``-banded_pre_mat``
+and the n*(2k+1) band entries stream (the shifted-slice XLA form) while
+only the few outliers pay the gather + segment-sum path.  The split is EXACT — unlike ``-banded_pre_mat``
 (which truncates to build a preconditioner), the remainder keeps every
 out-of-band entry, so this is an operator representation, not an
 approximation.
@@ -27,10 +26,11 @@ import numpy as np
 
 from .band import BandedMatrix, banded_matvec
 
-# empirical cost ratio of TPU scalar gather/scatter elements vs streamed
-# band elements (0.2 GB/s vs ~600+ GB/s measured on v5e — see the gather
-# purge, README); used only to pick the split bandwidth
-_SCALAR_COST = 256
+# cost of one BCOO nonzero relative to one streamed band entry: the BCOO
+# matvec's time per nonzero over the band matvec's time per stored entry,
+# measured on the H100 at n=1e6 (PERF.md); used only to pick the split
+# bandwidth and to decide whether the split beats plain BCOO
+_SCALAR_COST = 20
 
 
 @jax.tree_util.register_dataclass
@@ -67,8 +67,8 @@ def split_plan(a, kmax: int = 255):
     """(k, nnz_out, profitable): the cost-optimal split bandwidth, its
     outlier count, and whether the split beats an all-scalar BCOO matvec —
     computed from the |i-j| entry-count histogram alone (no arrays built,
-    no device transfers).  ``kmax`` caps the band at w = 2k+1 <= 511, the
-    Pallas banded kernel's feasibility limit."""
+    no device transfers).  ``kmax`` caps the band at w = 2k+1 <= 511, where
+    the band matvec still unrolls its diagonals."""
     import scipy.sparse as sp
     coo = sp.csr_matrix(a).tocoo()
     n = coo.shape[0]

@@ -9,7 +9,7 @@ replaces it with open algorithms:
 * graph Laplacian with drop tolerance (MatLaplacian re-design,
   /root/reference/src/spectralPartition.c:63-139),
 * Fiedler vector by dense eigendecomposition (small n), SciPy Lanczos
-  (host setup path), or JAX LOBPCG on device (TPU path — a jittable
+  (host setup path), or JAX LOBPCG on device (a jittable
   sparse-matvec iteration, replacing the O(N^3) dense LAPACKgeev the
   reference's partitioner uses, /root/reference/src/spectralPartition.c:291),
 * ordering = argsort of the Fiedler vector,
@@ -126,13 +126,11 @@ def _fiedler_multilevel(lap: sp.csr_matrix, tol: float, seed: int,
 
     ``refine``: "host" (SciPy LOBPCG, the default), "device" (warm-started
     jittable LOBPCG on the deflated spectrum-flipped operator — all sparse
-    matvecs on the accelerator), or "auto" (= host).  Measured at n=1e6 /
-    nnz=5e6 on the v5e (2026-08, experiments/lab_fiedler.py): device
-    refinement takes 219 s against host's 32 s — the BCOO matvec lowers to
-    TPU gather/scatter (~0.2 GB/s) and every LOBPCG iteration pays a
-    dispatch round-trip, while the host CSR matvec runs at memory speed
-    with zero latency.  "device" stays available for environments where
-    the host is the scarce resource.  Coarsening stays host-side by
+    matvecs on the accelerator), or "auto" (= host: each LOBPCG iteration
+    on the device pays a dispatch round-trip per level, while the host CSR
+    matvec has none; the device refine is not measured on the H100 yet).
+    "device" stays available for environments where the host is the
+    scarce resource.  Coarsening stays host-side by
     design: it is a combinatorial matching, the numerics are the per-level
     eigensolves."""
     if refine == "auto":
@@ -284,7 +282,7 @@ def _fiedler_lobpcg_jax(lap: sp.csr_matrix, tol: float, seed: int,
 
     Works on (c*I - L) restricted to the complement of the constant vector:
     its top eigenvector is L's Fiedler vector.  All work is jittable sparse
-    matvecs — the TPU-native replacement for dense geev.
+    matvecs — the device replacement for dense geev.
     """
     import jax
     import jax.numpy as jnp

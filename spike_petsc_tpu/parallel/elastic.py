@@ -2,16 +2,16 @@
 
 The reference has NO recovery story (SURVEY.md §5: failure detection /
 elastic recovery "none" — its model is PETSc fail-fast `SETERRQ`).  This
-module adds one, shaped for how TPU runtimes actually fail:
+module adds one, shaped for how accelerator runtimes fail:
 
 * a collective program dies as a *runtime error on the host* (XLA fails
   fast, like `CHKERRQ`), never as corrupted results;
 * solver state is tiny compared to the factorization — checkpointing the
   iterate ``x`` (+ iteration counts) to host npz between Krylov restart
-  segments costs microseconds against a 2-3 ms solve;
-* re-factoring a band on a rebuilt (smaller) mesh costs ~132 ms at the
-  bench config — far cheaper and simpler than any scheme that reshards
-  factor state across a changed device set.
+  segments is tiny next to a solve;
+* re-factoring a band on a rebuilt (smaller) mesh is one factorization —
+  far simpler than any scheme that reshards factor state across a changed
+  device set.
 
 So: `resilient_solve` runs the distributed SPIKE-preconditioned Krylov
 solve in segments of ``segment_its`` iterations.  After each segment the
@@ -97,7 +97,7 @@ def resilient_solve(band: BandedMatrix, rhs, *,
       n_devices: mesh size to start with (None = all available).
       mesh_shape: (n_slices, per_slice) — run on a MULTISLICE mesh instead
         of the 1-D partition mesh.  Recovery then drops whole slices (the
-        unit TPU pods actually lose): per_slice chips stay fixed, the
+        unit a multi-host deployment loses): per_slice devices stay fixed, the
         slice count shrinks to what the surviving devices support.
       segment_its: iterations per segment (= checkpoint cadence; also the
         natural GMRES restart boundary).
@@ -183,7 +183,7 @@ def resilient_solve(band: BandedMatrix, rhs, *,
             s, p = cfg
             if alive >= s * p:
                 return cfg
-            # slice loss: per_slice stays fixed (ICI topology), the slice
+            # slice loss: per_slice stays fixed (intra-slice layout), the slice
             # count shrinks to what the survivors support
             new_s = min(s, alive // p)
             if new_s < 1:

@@ -1,6 +1,6 @@
 """Device-parallel weighted bipartite matching (auction algorithm).
 
-TPU-native counterpart of the reference's two accelerated matchings:
+Device counterpart of the reference's two accelerated matchings:
 the hand-written AWBM (/root/reference/src/petsc_mat_awbm.c:42-225) and the
 MPI-distributed MatComputeMatching (/root/reference/src/wbm.c:201-456).  The
 reference's own notes (ParallelMC64.tex:6-19) point to auction algorithms as
@@ -8,7 +8,7 @@ the way to parallelize MC64 — that is exactly what this module implements:
 
 * matrix as padded ELL arrays [n, dmax] (static shapes for jit),
 * duals/prices updated by *rounds* of all-column parallel bidding
-  (vectorized argmax + segment reductions — VPU work, no sequential DFS),
+  (vectorized argmax + segment reductions — no sequential DFS),
 * row acceptance by segment-max with deterministic tie-breaking,
 * a fixed round budget inside ``lax.while_loop``; unmatched leftovers are
   completed deterministically like HSLmc64XD.
@@ -135,7 +135,7 @@ def _auction_rounds_dist(rows_sh, benefit_sh, n: int, eps, max_rounds: int,
     (owners, prices) replicated and updated identically on every device from
     globally-reduced acceptances.
 
-    This is the TPU-native redesign of the reference's MPI matching
+    This is the mesh-native redesign of the reference's MPI matching
     (`MatComputeMatching_MPIAIJ`, /root/reference/src/wbm.c:201-296): where
     it reduces row duals with a VecScatter forward/reverse pair (:270-273),
     here each bidding round does two O(n) collective reductions (pmax of the

@@ -4,13 +4,14 @@ The framework's parallelism maps the reference's row-block MPI distribution
 (PETSc MPIAIJ, /root/reference/src/wbm.c:205-218) onto a named
 ``jax.sharding.Mesh`` axis:
 
-  axis "p"   — SPIKE partition axis (one or more band partitions per chip);
-               collectives ride ICI
+  axis "p"   — SPIKE partition axis (one or more band partitions per
+               device); collectives ride the devices' interconnect
   axis "rhs" — optional batch axis over independent right-hand sides
                (embarrassingly parallel, the "data parallel" analogue)
 
-Multi-slice (DCN) deployments add an outer axis and keep "p" within a slice
-so the reduced-system all-gather stays on ICI.
+Multi-slice deployments (groups of devices joined by a slower link) add an
+outer axis and keep "p" within a slice so the reduced-system all-gather
+stays on the fast intra-slice link.
 """
 
 from __future__ import annotations

@@ -1,20 +1,20 @@
 """Multi-chip SPIKE: partitions-per-device factorization, solves, and matvec.
 
-This is the TPU-native replacement for the reference's MPI layer: where
+This is the replacement for the reference's MPI layer: where
 spike-petsc exchanges duals and assembles global quantities through
 ``VecScatter`` and ``MPI_Allreduce`` (/root/reference/src/wbm.c:270-273, 546),
 here K = n_devices * parts_per_device band partitions live across a mesh
 axis and
 
 * each device factors its ``ppd`` partitions as one batched block-Thomas
-  sweep (the same MXU batching as the single-chip path),
+  sweep (the same batching as the single-chip path),
 * tip/interface exchange is a ``jax.lax.all_gather`` over the "p" axis
-  (O(K * k^2) bytes — tiny, rides ICI),
+  (O(K * k^2) bytes — tiny),
 * the reduced block-tridiagonal system is factored/solved *replicated* on
-  every chip (redundant flops instead of a scatter round-trip),
+  every device (redundant flops instead of a scatter round-trip),
 * the Krylov-side banded SpMV resolves intra-device partition coupling with
   local slices and exchanges only the k-wide device-boundary strips with
-  ``jax.lax.ppermute`` (nearest-neighbour ICI traffic only),
+  ``jax.lax.ppermute`` (nearest-neighbour traffic only),
 * dot products psum over "p" (solvers pass ``axis_name`` to the KSP).
 
 Feature parity with the single-chip path (ops.spike): stored V/W spikes for
@@ -43,10 +43,10 @@ from ..ops.blocktri import (BlockTridiagonal, BlockTriFactor, band_to_blocktri,
                             sweep_precision,
                             transposed_factor_from_blocks as
                             _fast_transposed_factor)
-from ..ops.spike import (_batched_tri_solve, _partition_geometry,
-                         _rhs_itemsize)
+from ..ops.spike import _batched_tri_solve, _partition_geometry
 from ..solvers import krylov
 from ..solvers.krylov_many import MANY_SOLVERS
+from ..utils.jit import jit_closure
 from ..utils.registry import SOLVERS
 
 
@@ -71,13 +71,6 @@ class DistSpikeFactor:
     k: int = field(metadata=dict(static=True))
     ppd: int = field(metadata=dict(static=True))     # partitions per device
     truncated: bool = field(metadata=dict(static=True))
-    # optional diagonal-major local band for the banded-Pallas matvec
-    # route (dist_spike_factor(matvec_impl="banded_pallas")): [w, Sg, 128]
-    # sharded on the middle (row-tile) axis; None = blocks route
-    mv_d3: Optional[jax.Array] = None
-    mv_S: int = field(default=0, metadata=dict(static=True))
-    mv_kl: int = field(default=0, metadata=dict(static=True))
-    mv_ku: int = field(default=0, metadata=dict(static=True))
 
     @property
     def nb(self) -> int:
@@ -87,9 +80,7 @@ class DistSpikeFactor:
 def _local_tips_one(data_one: jax.Array, gidx, m: int, k: int, kl: int,
                     ku: int, K: int):
     """k x k coupling corners of ONE partition; zeroed at the global edges
-    (same flatten-and-reskew form as ops.spike._extract_tips — TPU gathers
-    are ~0.2 GB/s and k separate tiny slices cost ~0.4 ms each, see
-    ops.spike._skew_tip)."""
+    (same flatten-and-reskew form as ops.spike._extract_tips)."""
     from ..ops.spike import _skew_tip
     Btip = _skew_tip(jnp.pad(data_one[m - k:, :], ((0, 0), (0, 2 * k))),
                      k + kl, k)
@@ -178,33 +169,6 @@ def _shard_or_rep(tree, axis):
     return jax.tree_util.tree_map(spec, tree)
 
 
-def _resolve_matvec_impl(impl: str, w: int, local_n: int, n: int,
-                         dtype) -> str:
-    """Resolve ``matvec_impl='auto'`` to 'banded_pallas' or 'blocks',
-    mirroring the single-chip ``as_matvec('auto')`` dispatch (VERDICT r4
-    item 5): the measured tuning record decides first, the static TPU
-    default (the diagonal-major banded kernel, the measured v5e winner at
-    every width) second.  The dist 'blocks' route IS the single-chip
-    blocktri route — the Krylov matvec runs on the stored block-tridiagonal
-    operator — so a measured 'blocktri' or 'xla' winner maps to 'blocks'.
-
-    Feasibility is judged on the LOCAL row count (the kernel runs
-    per-device inside shard_map); the record hint on the GLOBAL n (the
-    single-chip measurements were taken at global scale)."""
-    if impl != "auto":
-        return impl
-    if jax.default_backend() != "tpu":
-        return "blocks"
-    from ..ops.pallas.band_matvec import banded_mv_feasible
-    if not banded_mv_feasible(w, n=local_n, dtype=dtype):
-        return "blocks"
-    from ..utils.tuning import matvec_route_hint, platform_key
-    hint = matvec_route_hint(platform_key(), w, dtype=dtype, n=n)
-    if hint is None or hint == "banded_pallas":
-        return "banded_pallas"
-    return "blocks"
-
-
 def dist_spike_factor(band: BandedMatrix, mesh: Mesh, axis: str = "p",
                       method: str = "inv", truncated: bool = False,
                       block_b: Optional[int] = None,
@@ -214,8 +178,7 @@ def dist_spike_factor(band: BandedMatrix, mesh: Mesh, axis: str = "p",
                       store_dtype=None, spike_dtype=None,
                       shift: str = "none", shift_amount: float = 0.0,
                       inverter: str = "auto",
-                      safety_net: bool = True,
-                      matvec_impl: str = "auto") -> DistSpikeFactor:
+                      safety_net: bool = True) -> DistSpikeFactor:
     """Factor a global banded matrix over the mesh with
     K = n_devices * parts_per_device partitions.
 
@@ -232,25 +195,16 @@ def dist_spike_factor(band: BandedMatrix, mesh: Mesh, axis: str = "p",
     scan), "cr" (cyclic reduction, log-depth), "auto" (cr when K-1 >= 33,
     keeping distributed solve latency flat in K).
 
-    ``matvec_impl``: "blocks" runs the Krylov matvec on the stored
-    block-tridiagonal operator (zero extra HBM, per-partition tip
-    corrections); "banded_pallas" additionally stores the local band rows
-    in the diagonal-major kernel layout — the single-chip route winner
-    (1.06 vs 2.05 ms at w=201/N=1e6 on v5e), streaming exactly the n*w
-    band bytes per matvec, with only the two k-wide DEVICE-edge strips
-    riding ppermute (intra-device partition couplings come from the band
-    itself).  Costs one band-sized HBM copy; real f32/bf16 bands only.
-    "auto" (default) picks between them exactly like the single-chip
-    ``as_matvec('auto')``: measured tuning record first, static TPU
-    default (banded_pallas when feasible) second, blocks elsewhere."""
+    The Krylov matvec runs on the stored block-tridiagonal operator
+    (``local_matvec``): per-partition block products plus k-wide
+    device-edge strips over ppermute."""
     def build(inv):
         return _dist_spike_factor_impl(
             band, mesh, axis, method=method, truncated=truncated,
             block_b=block_b, parts_per_device=parts_per_device,
             reduced=reduced, store_spikes=store_spikes,
             store_dtype=store_dtype, spike_dtype=spike_dtype, shift=shift,
-            shift_amount=shift_amount, inverter=inv,
-            matvec_impl=matvec_impl)
+            shift_amount=shift_amount, inverter=inv)
 
     dsf = build(inverter)
     if safety_net:
@@ -271,11 +225,12 @@ def _dist_safety_net(band, dsf, mesh, axis, inverter, store_dtype,
     if not _newton_probe_active(inverter):
         return dsf, False
     import numpy as _np
-    from ..ops.band import banded_matvec as _bmv
-    probe = _bmv(band, jnp.ones((band.n,), band.data.dtype))
+    # every product runs sharded (dist_matvec): the global band never
+    # gathers on one device
+    probe = dist_matvec(dsf, jnp.ones((dsf.n,), dsf.Btip.dtype), mesh, axis)
     xs = dist_spike_solve(dsf, probe, mesh, axis)
     err = float(_np.asarray(jnp.linalg.norm(
-        _bmv(band, xs) - probe) / jnp.linalg.norm(probe)))
+        dist_matvec(dsf, xs, mesh, axis) - probe) / jnp.linalg.norm(probe)))
     tol = _probe_tolerance(store_dtype, spike_dtype)
     bad = not _np.isfinite(err) or (exact and err > tol) or err > 1e6
     if bad:
@@ -283,39 +238,42 @@ def _dist_safety_net(band, dsf, mesh, axis, inverter, store_dtype,
     return dsf, False
 
 
+def _shard_band(band: BandedMatrix, K: int, m: int, sharding) -> jax.Array:
+    """The band padded to K*m rows (unit diagonal) as [K, m, w] partitions
+    laid out by ``sharding``.  A host (NumPy) band is padded on the host
+    and each device receives only its own shard; a device band is padded
+    by a program whose output is already sharded — either way no device
+    holds the whole band beyond what the caller put there."""
+    import numpy as _np
+    w = band.width
+    if isinstance(band.data, _np.ndarray):
+        data = band.data
+        if data.shape[0] < K * m:
+            pad = _np.zeros((K * m - data.shape[0], w), data.dtype)
+            pad[:, band.kl] = 1
+            data = _np.concatenate([data, pad], axis=0)
+        return jax.device_put(data.reshape(K, m, w), sharding)
+    return jax.jit(lambda d: pad_banded(
+        BandedMatrix(data=d, kl=band.kl, ku=band.ku), K * m).data.reshape(
+            K, m, w), out_shardings=sharding)(band.data)
+
+
 def _dist_spike_factor_impl(band: BandedMatrix, mesh: Mesh, axis: str,
                             *, method, truncated, block_b, parts_per_device,
                             reduced, store_spikes, store_dtype, spike_dtype,
-                            shift, shift_amount, inverter,
-                            matvec_impl: str = "blocks") -> DistSpikeFactor:
+                            shift, shift_amount,
+                            inverter) -> DistSpikeFactor:
     ndev = mesh.shape[axis]
     ppd = parts_per_device
     K = ndev * ppd
     kl, ku = band.kl, band.ku
     n = band.n
     k, b, m = _partition_geometry(n, K, kl, ku, block_b)
-    band = pad_banded(band, K * m)
     w = band.width
-    data = jax.device_put(band.data.reshape(K, m, w),
-                          NamedSharding(mesh, P(axis)))
+    data = _shard_band(band, K, m, NamedSharding(mesh, P(axis)))
 
     nb = m // b
     factor_fn = _local_factor_fn(method, shift, shift_amount, inverter)
-
-    if matvec_impl not in ("auto", "blocks", "banded_pallas"):
-        raise ValueError(f"matvec_impl must be 'auto', 'blocks' or "
-                         f"'banded_pallas', got {matvec_impl!r}")
-    matvec_impl = _resolve_matvec_impl(matvec_impl, w, ppd * m, n,
-                                       band.dtype)
-    mv_S = 0
-    if matvec_impl == "banded_pallas":
-        from ..ops.pallas.band_matvec import (banded_mv_feasible,
-                                              default_band_mv_S)
-        if not banded_mv_feasible(w, n=ppd * m, dtype=band.dtype):
-            raise ValueError(
-                f"matvec_impl='banded_pallas' infeasible for w={w}, "
-                f"local rows={ppd * m}, dtype={band.dtype}; use 'blocks'")
-        mv_S = default_band_mv_S(w, ppd * m, band.dtype)
 
     def local_setup(data_shard):                    # [ppd, m, w]
         gidx = jax.lax.axis_index(axis) * ppd + jnp.arange(ppd)
@@ -341,13 +299,7 @@ def _dist_spike_factor_impl(band: BandedMatrix, mesh: Mesh, axis: str,
         V, W = (Vfull, Wfull) if store_spikes else (None, None)
         fact, V, W = _cast_local(fact, V, W, method, store_dtype,
                                  spike_dtype)
-        mv_d3 = None
-        if matvec_impl == "banded_pallas":
-            from ..ops.pallas.band_matvec import prepare_banded_mv
-            mv_d3 = prepare_banded_mv(
-                BandedMatrix(data=data_shard.reshape(ppd * m, w),
-                             kl=kl, ku=ku), S=mv_S).d3
-        return blocks, fact, Btip, Ctip, red_fact, red_Dinv, V, W, mv_d3
+        return blocks, fact, Btip, Ctip, red_fact, red_Dinv, V, W
 
     # derive spec pytrees from eval_shape of the actual builders (the
     # factorization structure varies with method/shift/cast; zero-size
@@ -378,19 +330,15 @@ def _dist_spike_factor_impl(band: BandedMatrix, mesh: Mesh, axis: str,
         P() if truncated else None,
         P(axis) if store_spikes else None,
         P(axis) if store_spikes else None,
-        # diagonal-major local band: [w, Sg_local, 128] per device, global
-        # row tiles concatenated on the MIDDLE axis
-        P(None, axis, None) if matvec_impl == "banded_pallas" else None,
     )
-    blocks, fact, Btip, Ctip, red_fact, red_Dinv, V, W, mv_d3 = \
+    blocks, fact, Btip, Ctip, red_fact, red_Dinv, V, W = \
         jax.shard_map(
             local_setup, mesh=mesh, in_specs=(P(axis),),
             out_specs=out_specs, check_vma=False)(data)
     return DistSpikeFactor(blocks=blocks, fact=fact, Btip=Btip, Ctip=Ctip,
                            red_fact=red_fact, red_Dinv=red_Dinv, V=V, W=W,
                            n=n, K=K, m=m, b=b, k=k, ppd=ppd,
-                           truncated=truncated,
-                           mv_d3=mv_d3, mv_S=mv_S, mv_kl=kl, mv_ku=ku)
+                           truncated=truncated)
 
 
 def _blocktri_struct():
@@ -413,7 +361,8 @@ def local_interface_solve(dsf_local, g_top, g_bot, axis: str):
     gb = jax.lax.all_gather(g_bot, axis).reshape(K, k, *trail)
     rhs = jnp.concatenate([gb[:-1], gt[1:]], axis=1)        # [K-1, 2k, *r]
     if dsf_local.truncated:
-        z = jnp.einsum("jpq,jq...->jp...", dsf_local.red_Dinv, rhs)
+        z = jnp.einsum("jpq,jq...->jp...", dsf_local.red_Dinv, rhs,
+                       precision=sweep_precision(dsf_local.red_Dinv, rhs))
     else:
         from ..ops.spike import _solve_reduced_system
         z = _solve_reduced_system(dsf_local.red_fact, rhs)
@@ -428,43 +377,12 @@ def local_interface_solve(dsf_local, g_top, g_bot, axis: str):
 
 
 def _local_tri_solve(dsf_local, rblk: jax.Array, impl: str) -> jax.Array:
-    """Per-device batched partition solve with engine selection: 'auto'
-    routes to the fused manual-DMA Pallas sweep on TPU for method='inv'
-    lane-aligned factors (727 GB/s measured on v5e), else the XLA scan."""
-    fact = dsf_local.fact
-    from ..ops.pallas.fused_sweep import fused_sweep_feasible
-    use_fused = impl == "pallas_fused" or (
-        impl == "auto" and jax.default_backend() == "tpu"
-        and fused_sweep_feasible(fact, dsf_local.b,
-                                 rhs_itemsize=_rhs_itemsize(rblk.dtype)))
-    if use_fused:
-        from ..ops.pallas.fused_sweep import blocktri_solve_fused_pallas
-        return blocktri_solve_fused_pallas(fact, rblk)
-    return _batched_tri_solve(fact, rblk)
-
-
-def _local_tri_solve_many(dsf_local, rblk: jax.Array, impl: str) -> jax.Array:
-    """Multi-RHS per-device batched solve [ppd, nb, b, r]: same auto rule as
-    ops.spike.spike_solve_many — the fused kernel wins only while one VMEM
-    chunk covers all r (chunking re-streams the factors; the XLA scan
-    streams them once for all right-hand sides)."""
-    fact = dsf_local.fact
-    r = rblk.shape[-1]
-    use_fused = impl in ("pallas", "pallas_fused")
-    if impl == "auto" and jax.default_backend() == "tpu":
-        from ..ops.pallas.fused_sweep import (_pick_kt_many,
-                                              fused_sweep_feasible)
-        if fused_sweep_feasible(fact, dsf_local.b,
-                                rhs_itemsize=_rhs_itemsize(rblk.dtype)):
-            cdtype = jnp.result_type(rblk.dtype, jnp.float32)
-            _, rc = _pick_kt_many(rblk.shape[0], dsf_local.nb, dsf_local.b,
-                                  r, jnp.dtype(fact.F.dtype).itemsize, 4,
-                                  jnp.dtype(cdtype).itemsize)
-            use_fused = rc >= r
-    if use_fused:
-        from ..ops.pallas.fused_sweep import blocktri_solve_fused_many_pallas
-        return blocktri_solve_fused_many_pallas(fact, rblk)
-    return _batched_tri_solve(fact, rblk)
+    """Per-device batched partition solve, rblk [ppd, nb, b] or
+    [ppd, nb, b, r]: the Pallas sweep kernels or the XLA scan, chosen
+    exactly like ops.spike.spike_solve (the platform seam for 'auto')."""
+    from ..ops.spike import _make_batched_solve, _resolve_impl
+    impl = _resolve_impl(dsf_local, impl, rblk.dtype)
+    return _make_batched_solve(dsf_local, impl, many=rblk.ndim == 4)(rblk)
 
 
 def _spike_correct(dsf_local, g, rblk, xbot_prev, xtop_next, solve_fn):
@@ -517,33 +435,21 @@ def local_spike_solve_many(dsf_local, rblk: jax.Array, axis: str,
     interface all_gather carries [K, k, r] strips, and the reduced system
     is solved for all columns in one replicated call."""
     nb, b, k = dsf_local.nb, dsf_local.b, dsf_local.k
-    g = _local_tri_solve_many(dsf_local, rblk, impl)
+    g = _local_tri_solve(dsf_local, rblk, impl)
     if dsf_local.K == 1:
         return g
     xbot_prev, xtop_next = local_interface_solve(
         dsf_local, g[:, 0, :k, :], g[:, nb - 1, b - k:, :], axis)
     return _spike_correct(
         dsf_local, g, rblk, xbot_prev, xtop_next,
-        lambda r2: _local_tri_solve_many(dsf_local, r2, impl))
+        lambda r2: _local_tri_solve(dsf_local, r2, impl))
 
 
 def _local_blocks_matvec(dsf_local, xblk: jax.Array) -> jax.Array:
     """Per-device block-tridiagonal matvec (no halo): [ppd, nb, b(, r)].
-
-    On TPU the ppd partitions are flattened into one [ppd*nb] block sequence
-    and run through the Pallas streaming matvec (band_to_blocktri zeroes
-    each partition's L[0]/U[nb-1], so flattening adds no spurious coupling)
-    — the XLA batched-GEMV form runs at ~40 GB/s vs ~700 for the kernel
-    (ops/pallas/matvec.py; VERDICT r2 missing #4)."""
-    blocks = dsf_local.blocks
-    ppd, nb, b = dsf_local.ppd, dsf_local.nb, dsf_local.b
-    if xblk.ndim == 3 and jax.default_backend() == "tpu":
-        # [ppd, nb, ...] is already the manual-DMA kernel's chunk layout
-        # (no pad/copy); per-partition L[0]/U[nb-1] are zero, so the
-        # flattened sequence adds no spurious coupling
-        from ..ops.pallas.matvec import blocktri_matvec_dma_chunked
-        return blocktri_matvec_dma_chunked(blocks, xblk)
-    return jax.vmap(blocktri_matvec)(blocks, xblk)
+    band_to_blocktri zeroes each partition's L[0]/U[nb-1], so the
+    cross-partition coupling is added by the callers from the tips."""
+    return jax.vmap(blocktri_matvec)(dsf_local.blocks, xblk)
 
 
 def _halo_corrections(x_top, x_bot, axis, ndev):
@@ -559,47 +465,10 @@ def _halo_corrections(x_top, x_bot, axis, ndev):
     return next_tops, prev_bots
 
 
-def _local_banded_matvec(dsf_local, x_local: jax.Array,
-                         axis) -> jax.Array:
-    """Per-device SpMV on the stored diagonal-major band
-    (``matvec_impl="banded_pallas"``): the kernel streams exactly the
-    local band bytes and covers EVERY intra-device coupling (including
-    across partition boundaries — the band retains what band_to_blocktri
-    zeroes), so only the two k-wide DEVICE-edge strips need ppermute +
-    tip corrections.  ``axis`` may be a name or a tuple of names (the
-    multislice (slice, p) ring — device order flattens row-major, so the
-    same ring permutation covers both layouts)."""
-    from ..ops.pallas.band_matvec import (PreparedBandMV,
-                                          banded_matvec_prepared)
-    k, K = dsf_local.k, dsf_local.K
-    ppd, m = dsf_local.ppd, dsf_local.m
-    prep = PreparedBandMV(d3=dsf_local.mv_d3, kl=dsf_local.mv_kl,
-                          ku=dsf_local.mv_ku, n=ppd * m, S=dsf_local.mv_S)
-    y = banded_matvec_prepared(prep, x_local)
-    if K == 1:
-        return y
-    ndev = K // ppd
-    xp = x_local.reshape(ppd, m)
-    top_from_next_dev = jax.lax.ppermute(
-        xp[0, :k], axis, [(i, (i - 1) % ndev) for i in range(ndev)])
-    bot_from_prev_dev = jax.lax.ppermute(
-        xp[-1, m - k:], axis, [(i, (i + 1) % ndev) for i in range(ndev)])
-    y = y.reshape(ppd, m)
-    # same tip orientation as the blocks route below; Btip/Ctip are zero
-    # at the global edges so the ring wrap contributes nothing there
-    y = y.at[-1, m - k:].add(dsf_local.Btip[-1] @ top_from_next_dev)
-    y = y.at[0, :k].add(dsf_local.Ctip[0] @ bot_from_prev_dev)
-    return y.reshape(-1)
-
-
 def local_matvec(dsf_local, x_local: jax.Array, axis: str) -> jax.Array:
     """Per-device banded SpMV: intra-device partition coupling via local
     slices; only the k-wide device-boundary strips ride ppermute (replacing
     VecScatter halo traffic, /root/reference/src/wbm.c:270-273)."""
-    if getattr(dsf_local, "mv_d3", None) is not None and x_local.ndim == 1:
-        # ndim > 1 (multi-RHS) intentionally falls back to blocks — see
-        # local_matvec_many and ROADMAP r4 item 3c (MXU-vs-VPU economics)
-        return _local_banded_matvec(dsf_local, x_local, axis)
     nb, b, k, K = dsf_local.nb, dsf_local.b, dsf_local.k, dsf_local.K
     ppd, m = dsf_local.ppd, dsf_local.m
     xp = x_local.reshape(ppd, m)
@@ -609,14 +478,17 @@ def local_matvec(dsf_local, x_local: jax.Array, axis: str) -> jax.Array:
         return y.reshape(-1)
     next_tops, prev_bots = _halo_corrections(
         xp[:, :k], xp[:, -k:], axis, K // ppd)
-    y = y.at[:, -k:].add(jnp.einsum("pcd,pd->pc", dsf_local.Btip, next_tops))
-    y = y.at[:, :k].add(jnp.einsum("pcd,pd->pc", dsf_local.Ctip, prev_bots))
+    prec = sweep_precision(dsf_local.Btip, next_tops)
+    y = y.at[:, -k:].add(jnp.einsum("pcd,pd->pc", dsf_local.Btip, next_tops,
+                                    precision=prec))
+    y = y.at[:, :k].add(jnp.einsum("pcd,pd->pc", dsf_local.Ctip, prev_bots,
+                                   precision=prec))
     return y.reshape(-1)
 
 
 def local_matvec_many(dsf_local, xblk: jax.Array, axis: str) -> jax.Array:
     """Multi-RHS per-device banded SpMV; xblk: [ppd, nb, b, r] -> same.
-    Halo strips are [k, r] — still tiny nearest-neighbour ICI traffic."""
+    Halo strips are [k, r] — still tiny nearest-neighbour traffic."""
     nb, b, k, K = dsf_local.nb, dsf_local.b, dsf_local.k, dsf_local.K
     ppd = dsf_local.ppd
     y = _local_blocks_matvec(dsf_local, xblk)
@@ -624,10 +496,11 @@ def local_matvec_many(dsf_local, xblk: jax.Array, axis: str) -> jax.Array:
         return y
     next_tops, prev_bots = _halo_corrections(
         xblk[:, 0, :k, :], xblk[:, nb - 1, b - k:, :], axis, K // ppd)
+    prec = sweep_precision(dsf_local.Btip, next_tops)
     y = y.at[:, nb - 1, b - k:, :].add(
-        jnp.einsum("pcd,pdr->pcr", dsf_local.Btip, next_tops))
+        jnp.einsum("pcd,pdr->pcr", dsf_local.Btip, next_tops, precision=prec))
     y = y.at[:, 0, :k, :].add(
-        jnp.einsum("pcd,pdr->pcr", dsf_local.Ctip, prev_bots))
+        jnp.einsum("pcd,pdr->pcr", dsf_local.Ctip, prev_bots, precision=prec))
     return y
 
 
@@ -635,10 +508,33 @@ def local_matvec_many(dsf_local, xblk: jax.Array, axis: str) -> jax.Array:
 # Global entry points
 # ---------------------------------------------------------------------------
 
+def _pad_rows(v: jax.Array, rows: int) -> jax.Array:
+    """Zero-pad the leading axis to ``rows`` (a pad, not a scatter: a
+    scatter's index constant becomes a hoisted jit constant that JAX cannot
+    place on a mesh)."""
+    return jnp.pad(v, [(0, rows - v.shape[0])] + [(0, 0)] * (v.ndim - 1))
+
+
 def _pad_shard_rhs(dsf: DistSpikeFactor, mesh: Mesh, axis: str, rhs):
-    rp = jnp.zeros((dsf.K * dsf.m,), rhs.dtype).at[:dsf.n].set(rhs)
+    rp = _pad_rows(rhs, dsf.K * dsf.m)
     return jax.device_put(rp.reshape(dsf.K, dsf.m),
                           NamedSharding(mesh, P(axis)))
+
+
+def dist_matvec(dsf: DistSpikeFactor, x, mesh: Mesh,
+                axis: str = "p") -> jax.Array:
+    """y = A x with the factor's sharded operator (``local_matvec`` on
+    every device); x/result [n]."""
+    x_sh = _pad_shard_rhs(dsf, mesh, axis, jnp.asarray(x))
+    ppd, m = dsf.ppd, dsf.m
+
+    def local_fn(dsf_in, x_local):
+        return local_matvec(dsf_in, x_local.reshape(-1), axis).reshape(ppd, m)
+
+    y = jax.shard_map(local_fn, mesh=mesh,
+                      in_specs=(_dsf_specs(dsf, axis), P(axis)),
+                      out_specs=P(axis), check_vma=False)(dsf, x_sh)
+    return y.reshape(-1)[:dsf.n]
 
 
 def dist_spike_solve(dsf: DistSpikeFactor, rhs, mesh: Mesh,
@@ -667,7 +563,7 @@ def dist_spike_solve_many(dsf: DistSpikeFactor, rhs, mesh: Mesh,
     rhs = jnp.asarray(rhs)
     r = rhs.shape[1]
     ppd, m, nb, b = dsf.ppd, dsf.m, dsf.nb, dsf.b
-    rp = jnp.zeros((dsf.K * m, r), rhs.dtype).at[:dsf.n].set(rhs)
+    rp = _pad_rows(rhs, dsf.K * m)
     rhs_sh = jax.device_put(rp.reshape(dsf.K, m, r),
                             NamedSharding(mesh, P(axis)))
 
@@ -686,7 +582,7 @@ def _pad_shard_nullspace(ns, dsf: DistSpikeFactor, mesh: Mesh, spec):
     rhs (zero rows in the padding leave every inner product unchanged).
     Returns [K, m, dim]."""
     q = ns.vecs
-    qp = jnp.zeros((dsf.K * dsf.m, q.shape[1]), q.dtype).at[:dsf.n].set(q)
+    qp = _pad_rows(q, dsf.K * dsf.m)
     return jax.device_put(qp.reshape(dsf.K, dsf.m, q.shape[1]),
                           NamedSharding(mesh, spec))
 
@@ -697,8 +593,9 @@ def _remove_local(q_loc, v, axes):
     this device's shard of the orthonormal basis; the dim-sized
     coefficient is the only cross-device traffic (one psum)."""
     q = q_loc.astype(v.dtype)
-    coeff = jax.lax.psum(jnp.conj(q).T @ v, axes)
-    return v - q @ coeff
+    hi = jax.lax.Precision.HIGHEST
+    coeff = jax.lax.psum(jnp.matmul(jnp.conj(q).T, v, precision=hi), axes)
+    return v - jnp.matmul(q, coeff, precision=hi)
 
 
 def _dsf_specs(dsf: DistSpikeFactor, axis):
@@ -716,9 +613,7 @@ def _dsf_specs(dsf: DistSpikeFactor, axis):
         V=None if dsf.V is None else P(axis),
         W=None if dsf.W is None else P(axis),
         n=dsf.n, K=dsf.K, m=dsf.m, b=dsf.b, k=dsf.k, ppd=dsf.ppd,
-        truncated=dsf.truncated,
-        mv_d3=None if dsf.mv_d3 is None else P(None, axis, None),
-        mv_S=dsf.mv_S, mv_kl=dsf.mv_kl, mv_ku=dsf.mv_ku)
+        truncated=dsf.truncated)
 
 
 def _transpose_local_parts(fact, blocks, Btip, Ctip, *, perm_axes, ndev,
@@ -799,12 +694,7 @@ def dist_spike_transpose(dsf: DistSpikeFactor, mesh: Mesh, axis: str = "p",
 
     The result is a full DistSpikeFactor: ``dist_spike_solve``,
     ``dist_spike_solve_many`` and ``make_dist_solver`` (Krylov on A^T with
-    the SPIKE PC) work unchanged.  Pure transpose, no conjugation.
-
-    Note: the transpose factor carries no ``mv_d3``, so even when the
-    forward factor was built with ``matvec_impl='banded_pallas'`` the A^T
-    matvec runs on the blocks route — correct, but slower than the
-    forward operator's kernel route."""
+    the SPIKE PC) work unchanged.  Pure transpose, no conjugation."""
     if not isinstance(dsf.fact, BlockTriFactor):
         raise ValueError(
             "dist_spike_transpose requires block-Thomas partition factors "
@@ -980,40 +870,39 @@ def make_dist_solver_batched(dsf: DistSpikeFactor, mesh: Mesh,
                              in_specs=(fact_specs, rhs_spec),
                              out_specs=rhs_spec, check_vma=False)
 
-    @jax.jit
     def solve_fn(rhs):
         R = rhs.shape[0]
-        rp = jnp.zeros((R, dsf.K * dsf.m), rhs.dtype).at[:, :dsf.n].set(rhs)
+        rp = _pad_rows(rhs.T, dsf.K * dsf.m).T
         rhs_sh = jax.device_put(
             rp.reshape(R, dsf.K, dsf.m),
             NamedSharding(mesh, P(axis_rhs, axis_p)))
         x = shmapped(dsf, rhs_sh)
         return x.reshape(R, dsf.K * dsf.m)[:, :dsf.n]
 
-    return solve_fn
+    return jit_closure(solve_fn)
 
 
 # ---------------------------------------------------------------------------
-# Multi-slice (DCN) layer: slices x intra-slice partitions
+# Multi-slice layer: slices x intra-slice partitions
 # ---------------------------------------------------------------------------
 #
-# TPU pods compose slices over DCN (slow, high-latency) while chips within a
-# slice ride ICI.  The multislice SPIKE layout keeps ALL preconditioner
-# communication intra-slice:
+# A deployment that spans several groups of devices ("slices" — e.g. hosts)
+# joined by a link much slower than the one inside a group keeps ALL
+# preconditioner communication intra-slice:
 #
 #   * rows are split over (slice, p): each slice owns a contiguous row block,
 #     SPIKE-factored exactly within the slice (spike-tip all_gather over the
-#     "p" axis only -> ICI);
+#     "p" axis only);
 #   * across slices the preconditioner is block-Jacobi (the slice boundary is
-#     treated as a global edge in the reduced system) -- zero DCN traffic in
-#     PCApply;
+#     treated as a global edge in the reduced system) -- no cross-slice
+#     traffic in PCApply;
 #   * the matvec keeps the TRUE cross-slice coupling: k-wide boundary strips
 #     ride a ppermute over the flattened (slice, p) order, so only the two
-#     slice-edge strips per slice cross DCN;
-#   * Krylov dot products psum over both axes (the only other DCN traffic).
+#     slice-edge strips per slice cross the slow link;
+#   * Krylov dot products psum over both axes (the only other cross-slice
+#     traffic).
 #
-# This mirrors the comm-backend row of SURVEY.md §5 ("DCN axes for
-# multi-slice") and replaces the reference's single-level MPI communicator
+# This replaces the reference's single-level MPI communicator
 # (/root/reference/src/wbm.c:270-273) with a hierarchy-aware layout.
 
 
@@ -1066,8 +955,7 @@ def dist_spike_factor_multislice(
         reduced: str = "auto", store_spikes: bool = False,
         store_dtype=None, spike_dtype=None,
         shift: str = "none", shift_amount: float = 0.0,
-        inverter: str = "auto", safety_net: bool = True,
-        matvec_impl: str = "auto") -> DistSpikeFactor:
+        inverter: str = "auto", safety_net: bool = True) -> DistSpikeFactor:
     """Factor over a (slice, p) mesh: exact SPIKE within each slice,
     block-Jacobi coupling across slices (PC-grade; the matvec retains the
     exact cross-slice coupling).  K = n_slices * per_slice * ppd partitions
@@ -1076,27 +964,16 @@ def dist_spike_factor_multislice(
 
     Accepts the same storage/shift/inverter options as dist_spike_factor;
     stored V/W spikes are computed from the PC tips (slice boundaries
-    zeroed), so the 1-sweep PCApply stays ICI-only.  The safety net's probe
-    tolerance treats the factorization as inexact (block-Jacobi across
-    slices drops coupling on purpose), so it only rejects junk.
-
-    ``matvec_impl="banded_pallas"``: as in dist_spike_factor — the Krylov
-    matvec streams the stored diagonal-major local band through the Pallas
-    kernel; the k-wide edge strips ride the flattened (slice, p) ring, so
-    only slice-edge strips cross DCN (exactly the blocks route's traffic).
-    Single-RHS only; multi-RHS and transpose factors fall back to the
-    blocks route (see local_matvec_multislice /
-    dist_spike_transpose_multislice).  ``"auto"`` (default) resolves via
-    the measured tuning record / static TPU default exactly like
-    dist_spike_factor and the single-chip ``as_matvec``."""
+    zeroed), so the 1-sweep PCApply stays within the slice.  The safety
+    net's probe tolerance treats the factorization as inexact (block-Jacobi
+    across slices drops coupling on purpose), so it only rejects junk."""
     def build(inv):
         return _dist_spike_factor_multislice_impl(
             band, mesh, axis_slice, axis_p, method=method, block_b=block_b,
             parts_per_device=parts_per_device, reduced=reduced,
             store_spikes=store_spikes, store_dtype=store_dtype,
             spike_dtype=spike_dtype, shift=shift,
-            shift_amount=shift_amount, inverter=inv,
-            matvec_impl=matvec_impl)
+            shift_amount=shift_amount, inverter=inv)
 
     dsf = build(inverter)
     if safety_net:
@@ -1120,7 +997,7 @@ def _dist_spike_factor_multislice_impl(
         band: BandedMatrix, mesh: Mesh, axis_slice: str, axis_p: str,
         *, method, block_b, parts_per_device, reduced, store_spikes,
         store_dtype, spike_dtype, shift, shift_amount,
-        inverter, matvec_impl: str = "blocks") -> DistSpikeFactor:
+        inverter) -> DistSpikeFactor:
     n_slices = mesh.shape[axis_slice]
     ndev_p = mesh.shape[axis_p]
     ppd = parts_per_device
@@ -1129,27 +1006,11 @@ def _dist_spike_factor_multislice_impl(
     kl, ku = band.kl, band.ku
     n = band.n
     k, b, m = _partition_geometry(n, K, kl, ku, block_b)
-    band = pad_banded(band, K * m)
     w = band.width
-    data = jax.device_put(band.data.reshape(K, m, w),
-                          NamedSharding(mesh, P((axis_slice, axis_p))))
+    data = _shard_band(band, K, m,
+                       NamedSharding(mesh, P((axis_slice, axis_p))))
     nb = m // b
     factor_fn = _local_factor_fn(method, shift, shift_amount, inverter)
-
-    if matvec_impl not in ("auto", "blocks", "banded_pallas"):
-        raise ValueError(f"matvec_impl must be 'auto', 'blocks' or "
-                         f"'banded_pallas', got {matvec_impl!r}")
-    matvec_impl = _resolve_matvec_impl(matvec_impl, w, ppd * m, n,
-                                       band.dtype)
-    mv_S = 0
-    if matvec_impl == "banded_pallas":
-        from ..ops.pallas.band_matvec import (banded_mv_feasible,
-                                              default_band_mv_S)
-        if not banded_mv_feasible(w, n=ppd * m, dtype=band.dtype):
-            raise ValueError(
-                f"matvec_impl='banded_pallas' infeasible for w={w}, "
-                f"local rows={ppd * m}, dtype={band.dtype}; use 'blocks'")
-        mv_S = default_band_mv_S(w, ppd * m, band.dtype)
 
     def local_setup(data_shard):                    # [ppd, m, w]
         sidx = jax.lax.axis_index(axis_slice)
@@ -1164,7 +1025,7 @@ def _dist_spike_factor_multislice_impl(
             lambda d: band_to_blocktri(BandedMatrix(data=d, kl=kl, ku=ku),
                                        b))(data_shard)
         # PC tips: slice boundaries are PC-global edges (block-Jacobi
-        # across slices -> zero DCN traffic in PCApply)
+        # across slices -> no cross-slice traffic in PCApply)
         lidx = gidx % Ks                            # index within slice
         Btip_pc = jnp.where((lidx == Ks - 1)[:, None, None],
                             jnp.zeros_like(Btip), Btip)
@@ -1176,7 +1037,7 @@ def _dist_spike_factor_multislice_impl(
         tips = jnp.stack([Vfull[:, 0, :k, :], Vfull[:, nb - 1, b - k:, :],
                           Wfull[:, 0, :k, :], Wfull[:, nb - 1, b - k:, :]],
                          axis=1)                     # [ppd, 4, k, k]
-        # intra-slice gather ONLY (ICI)
+        # intra-slice gather ONLY
         slice_tips = jax.lax.all_gather(tips, axis_p).reshape(Ks, 4, k, k)
         red_fact, red_Dinv = _build_reduced(
             slice_tips[:, 0], slice_tips[:, 1], slice_tips[:, 2],
@@ -1184,13 +1045,7 @@ def _dist_spike_factor_multislice_impl(
         V, W = (Vfull, Wfull) if store_spikes else (None, None)
         fact, V, W = _cast_local(fact, V, W, method, store_dtype,
                                  spike_dtype)
-        mv_d3 = None
-        if matvec_impl == "banded_pallas":
-            from ..ops.pallas.band_matvec import prepare_banded_mv
-            mv_d3 = prepare_banded_mv(
-                BandedMatrix(data=data_shard.reshape(ppd * m, w),
-                             kl=kl, ku=ku), S=mv_S).d3
-        return blocks, fact, Btip, Ctip, red_fact, red_Dinv, V, W, mv_d3
+        return blocks, fact, Btip, Ctip, red_fact, red_Dinv, V, W
 
     sds = jax.ShapeDtypeStruct
     pax = P((axis_slice, axis_p))
@@ -1217,20 +1072,15 @@ def _dist_spike_factor_multislice_impl(
         None,
         pax if store_spikes else None,
         pax if store_spikes else None,
-        # diagonal-major local band: [w, Sg_local, 128] per device, global
-        # row tiles concatenated on the MIDDLE axis over the flattened ring
-        P(None, (axis_slice, axis_p), None)
-        if matvec_impl == "banded_pallas" else None,
     )
-    blocks, fact, Btip, Ctip, red_fact, red_Dinv, V, W, mv_d3 = \
+    blocks, fact, Btip, Ctip, red_fact, red_Dinv, V, W = \
         jax.shard_map(
             local_setup, mesh=mesh, in_specs=(pax,), out_specs=out_specs,
             check_vma=False)(data)
     return DistSpikeFactor(blocks=blocks, fact=fact, Btip=Btip, Ctip=Ctip,
                            red_fact=red_fact, red_Dinv=red_Dinv, V=V, W=W,
                            n=n, K=K, m=m, b=b, k=k, ppd=ppd,
-                           truncated=False,
-                           mv_d3=mv_d3, mv_S=mv_S, mv_kl=kl, mv_ku=ku)
+                           truncated=False)
 
 
 def dist_spike_transpose_multislice(
@@ -1247,12 +1097,7 @@ def dist_spike_transpose_multislice(
     matvec keeps exact cross-slice coupling), while the transpose spikes
     and per-slice reduced system are built from SLICE-MASKED tips (slice
     boundaries are PC-global edges — block-Jacobi across slices, so
-    PCApply stays ICI-only, matching the forward factor).
-
-    Note: the transpose factor carries no ``mv_d3``, so even when the
-    forward factor was built with ``matvec_impl='banded_pallas'`` the A^T
-    matvec (bicg and friends) runs on the blocks route — correct, but
-    slower than the forward operator's kernel route."""
+    PCApply stays within the slice, matching the forward factor)."""
     from ..ops.blocktri import TransposedBlockTriFactor
     if not isinstance(dsf.fact, BlockTriFactor):
         raise ValueError(
@@ -1287,7 +1132,7 @@ def dist_spike_transpose_multislice(
                                    perm_axes=axes, ndev=ndev, ppd=ppd,
                                    nb=nb, b=b, k=k, spike_mask=pc_mask,
                                    fast=fast)
-        # intra-slice gather ONLY (ICI)
+        # intra-slice gather ONLY
         slice_tips = jax.lax.all_gather(tips, axis_p).reshape(Ks, 4, k, k)
         red_fact, red_Dinv = _build_reduced(
             slice_tips[:, 0], slice_tips[:, 1], slice_tips[:, 2],
@@ -1329,8 +1174,8 @@ def dist_spike_transpose_multislice(
 
 
 def _interface_solve_in_slice(dsf_local, g_top, g_bot, axis_p: str, Ks: int):
-    """Per-slice interface solve: all-gather the tips over axis_p ONLY
-    (ICI), solve this slice's replicated reduced system, slice mine.
+    """Per-slice interface solve: all-gather the tips over axis_p ONLY,
+    solve this slice's replicated reduced system, slice mine.
     g_top/g_bot: [ppd, k] or [ppd, k, r]; returns (xbot_prev, xtop_next)
     of the same shape (indices within the slice — slice edges masked to
     zero, which is exactly the block-Jacobi PC-tip contract)."""
@@ -1383,17 +1228,18 @@ def local_spike_solve_multislice_many(dsf_local, rblk: jax.Array,
     """Multi-RHS per-device PCApply on a (slice, p) mesh;
     rblk: [ppd, nb, b, r] -> same.  The huge-N serving form: factor blocks
     stream once for ALL r right-hand sides, interface strips gather [Ks, k, r]
-    over the intra-slice axis only — still zero DCN traffic in PCApply."""
+    over the intra-slice axis only — still no cross-slice traffic in
+    PCApply."""
     nb, b, k, ppd = dsf_local.nb, dsf_local.b, dsf_local.k, dsf_local.ppd
     Ks = ndev_p * ppd
-    g = _local_tri_solve_many(dsf_local, rblk, impl)
+    g = _local_tri_solve(dsf_local, rblk, impl)
     if Ks == 1:
         return g
     xbot_prev, xtop_next = _interface_solve_in_slice(
         dsf_local, g[:, 0, :k, :], g[:, nb - 1, b - k:, :], axis_p, Ks)
     return _spike_correct(
         dsf_local, g, rblk, xbot_prev, xtop_next,
-        lambda r2: _local_tri_solve_many(dsf_local, r2, impl))
+        lambda r2: _local_tri_solve(dsf_local, r2, impl))
 
 
 def local_matvec_multislice(dsf_local, x_local, axis_slice: str,
@@ -1401,15 +1247,7 @@ def local_matvec_multislice(dsf_local, x_local, axis_slice: str,
                             ndev_p: int) -> jax.Array:
     """Exact banded SpMV on a (slice, p) mesh: boundary strips ride a
     ppermute over the flattened (slice, p) device order — only slice-edge
-    strips cross DCN."""
-    if getattr(dsf_local, "mv_d3", None) is not None and x_local.ndim == 1:
-        # banded-Pallas route: the ppermute rides the flattened
-        # (slice, p) order — same ring, only slice-edge strips cross DCN.
-        # ndim > 1 (multi-RHS) intentionally falls back to blocks: the
-        # lane-phase kernel is VPU-bound per RHS while the blocks route's
-        # MXU apply streams blocks once for all r (ROADMAP r4 item 3c).
-        return _local_banded_matvec(dsf_local, x_local,
-                                    (axis_slice, axis_p))
+    strips cross between slices."""
     nb, b, k, K = dsf_local.nb, dsf_local.b, dsf_local.k, dsf_local.K
     ppd, m = dsf_local.ppd, dsf_local.m
     xp = x_local.reshape(ppd, m)
@@ -1421,8 +1259,11 @@ def local_matvec_multislice(dsf_local, x_local, axis_slice: str,
     axes = (axis_slice, axis_p)
     next_tops, prev_bots = _halo_corrections(
         xp[:, :k], xp[:, -k:], axes, ndev)
-    y = y.at[:, -k:].add(jnp.einsum("pcd,pd->pc", dsf_local.Btip, next_tops))
-    y = y.at[:, :k].add(jnp.einsum("pcd,pd->pc", dsf_local.Ctip, prev_bots))
+    prec = sweep_precision(dsf_local.Btip, next_tops)
+    y = y.at[:, -k:].add(jnp.einsum("pcd,pd->pc", dsf_local.Btip, next_tops,
+                                    precision=prec))
+    y = y.at[:, :k].add(jnp.einsum("pcd,pd->pc", dsf_local.Ctip, prev_bots,
+                                   precision=prec))
     return y.reshape(-1)
 
 
@@ -1440,9 +1281,7 @@ def _multislice_specs(dsf: DistSpikeFactor, axis_slice: str, axis_p: str):
         V=None if dsf.V is None else pax,
         W=None if dsf.W is None else pax,
         n=dsf.n, K=dsf.K, m=dsf.m, b=dsf.b, k=dsf.k,
-        ppd=dsf.ppd, truncated=dsf.truncated,
-        mv_d3=None if dsf.mv_d3 is None else P(None, axes, None),
-        mv_S=dsf.mv_S, mv_kl=dsf.mv_kl, mv_ku=dsf.mv_ku)
+        ppd=dsf.ppd, truncated=dsf.truncated)
 
 
 
@@ -1457,8 +1296,9 @@ def make_dist_solver_multislice(dsf: DistSpikeFactor, mesh: Mesh,
                                 dsf_transpose: Optional[DistSpikeFactor]
                                 = None, nullspace=None,
                                 transpose_nullspace=None, **params):
-    """Multi-slice Krylov solver: per-slice SPIKE preconditioner (ICI-only),
-    exact cross-slice matvec (k-wide DCN strips), dots psum'd over both axes.
+    """Multi-slice Krylov solver: per-slice SPIKE preconditioner (no
+    cross-slice traffic), exact cross-slice matvec (k-wide strips), dots
+    psum'd over both axes.
 
     ``ksp_type="bicg"`` runs the shadow recurrence on A^T in-mesh: pass
     ``dsf_transpose=dist_spike_transpose_multislice(dsf, mesh, ...)``.
@@ -1531,11 +1371,10 @@ def make_dist_solver_multislice(dsf: DistSpikeFactor, mesh: Mesh,
     from ..solvers.types import KSPResult
 
     def _shard(v):
-        vp = jnp.zeros((dsf.K * dsf.m,), v.dtype).at[:dsf.n].set(v)
+        vp = _pad_rows(v, dsf.K * dsf.m)
         return jax.device_put(vp.reshape(dsf.K, dsf.m),
                               NamedSharding(mesh, pax))
 
-    @jax.jit
     def solve_fn(rhs, x0=None):
         rhs_sh = _shard(rhs)
         x0_sh = _shard(jnp.zeros_like(rhs) if x0 is None else x0)
@@ -1544,7 +1383,7 @@ def make_dist_solver_multislice(dsf: DistSpikeFactor, mesh: Mesh,
         return KSPResult(x=x.reshape(-1)[:dsf.n], its=its, reason=reason,
                          rnorm=rnorm, history=hist)
 
-    return solve_fn
+    return jit_closure(solve_fn)
 
 
 def _multislice_many_local_fn(dsf: DistSpikeFactor, ksp_type: str,
@@ -1611,7 +1450,7 @@ def _multislice_many_local_fn(dsf: DistSpikeFactor, ksp_type: str,
             return X.reshape(ppd, m, -1)
     elif ksp_type in MANY_SOLVERS:
         # batched Krylov over the whole RHS block: per-slice SPIKE PC many-
-        # apply (ICI-only) + exact cross-slice multi-RHS matvec; per-column
+        # apply (intra-slice) + exact cross-slice multi-RHS matvec; per-column
         # convergence, ONE stacked psum per reduction family
         method_many = MANY_SOLVERS[ksp_type]
 
@@ -1648,15 +1487,15 @@ def make_dist_solver_multislice_batched(
         dsf: DistSpikeFactor, mesh: Mesh, axis_slice: str = "slice",
         axis_p: str = "p", ksp_type: str = "richardson", **params):
     """Multi-RHS serving over the (slice, p) mesh itself — the huge-N
-    serving layout: rows span every chip (DCN included), and each device
+    serving layout: rows span every device (all slices), and each device
     solves ALL r right-hand sides on its row shard, so no rhs mesh axis is
     spent on replicas (make_dist_solver_batched covers that regime).
 
     Returns solve(rhs[n, r]) -> x[n, r].  ``ksp_type``:
       * "richardson" (default) — multi-RHS refinement X += M^-1 (B - A X):
-        the PC is per-slice exact SPIKE (ICI-only, factors streamed once
+        the PC is per-slice exact SPIKE (intra-slice, factors streamed once
         for all r), the residual matvec carries the TRUE cross-slice
-        coupling (k-wide DCN strips), so the iteration converges to the
+        coupling (k-wide strips), so the iteration converges to the
         exact solution;
       * "preonly"    — ONE multislice PCApply: block-Jacobi across slices,
         i.e. PC-grade accuracy (exact only when cross-slice coupling is
@@ -1676,16 +1515,15 @@ def make_dist_solver_multislice_batched(
                              in_specs=(specs, P(axes)),
                              out_specs=P(axes), check_vma=False)
 
-    @jax.jit
     def solve_fn(rhs):
         r = rhs.shape[1]
-        rp = jnp.zeros((dsf.K * dsf.m, r), rhs.dtype).at[:dsf.n].set(rhs)
+        rp = _pad_rows(rhs, dsf.K * dsf.m)
         rhs_sh = jax.device_put(rp.reshape(dsf.K, dsf.m, r),
                                 NamedSharding(mesh, P(axes)))
         x = shmapped(dsf, rhs_sh)
         return x.reshape(dsf.K * dsf.m, r)[:dsf.n]
 
-    return solve_fn
+    return jit_closure(solve_fn)
 
 
 # ---------------------------------------------------------------------------
@@ -1698,8 +1536,8 @@ def make_mesh_3d(shape, axes=("rhs", "slice", "p")) -> Mesh:
     multislice serving.  On real deployments whole slices are assigned to
     (replica, slice) coordinates via their ``slice_index`` attribute —
     the replica axis carries NO solver communication, so replicas may
-    span DCN freely; on virtual platforms the flat device order is
-    reshaped contiguously (innermost axis = intra-slice ICI)."""
+    span slices freely; on virtual platforms the flat device order is
+    reshaped contiguously (innermost axis = intra-slice)."""
     import numpy as _np
     n_rep, n_slices, per_slice = shape
     devs = jax.devices()
@@ -1719,7 +1557,7 @@ def make_dist_solver_3d(dsf: DistSpikeFactor, mesh: Mesh,
                         **params):
     """Replicated multislice serving over a 3-D (rhs, slice, p) mesh: each
     rhs-row of the mesh holds a full replica of the multislice factorization
-    (exact per-slice SPIKE over ICI, cross-slice coupling over DCN) and
+    (exact per-slice SPIKE, cross-slice coupling through the matvec) and
     solves its own batch of right-hand sides — the composition of
     make_dist_solver_batched's replica axis with the huge-N multislice
     layout, for deployments that want replica- AND huge-N serving at once.
@@ -1748,16 +1586,15 @@ def make_dist_solver_3d(dsf: DistSpikeFactor, mesh: Mesh,
                              in_specs=(specs, rhs_spec),
                              out_specs=rhs_spec, check_vma=False)
 
-    @jax.jit
     def solve_fn(rhs):                             # [R, n]
         R = rhs.shape[0]
-        rp = jnp.zeros((R, dsf.K * dsf.m), rhs.dtype).at[:, :dsf.n].set(rhs)
+        rp = _pad_rows(rhs.T, dsf.K * dsf.m).T
         rhs_sh = jax.device_put(rp.reshape(R, dsf.K, dsf.m),
                                 NamedSharding(mesh, rhs_spec))
         x = shmapped(dsf, rhs_sh)
         return x.reshape(R, dsf.K * dsf.m)[:, :dsf.n]
 
-    return solve_fn
+    return jit_closure(solve_fn)
 
 
 def make_dist_solver(dsf: DistSpikeFactor, mesh: Mesh, axis: str = "p",
@@ -1844,7 +1681,6 @@ def make_dist_solver(dsf: DistSpikeFactor, mesh: Mesh, axis: str = "p",
 
     from ..solvers.types import KSPResult
 
-    @jax.jit
     def solve_fn(rhs, x0=None):
         rhs_sh = _pad_shard_rhs(dsf, mesh, axis, rhs)
         x0_sh = _pad_shard_rhs(dsf, mesh, axis,
@@ -1854,4 +1690,4 @@ def make_dist_solver(dsf: DistSpikeFactor, mesh: Mesh, axis: str = "p",
         return KSPResult(x=x.reshape(-1)[:dsf.n], its=its, reason=reason,
                          rnorm=rnorm, history=hist)
 
-    return solve_fn
+    return jit_closure(solve_fn)

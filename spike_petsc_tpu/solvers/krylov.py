@@ -8,14 +8,14 @@ KSP (/root/reference/src/testbed.c:313-316; canned GMRES recipe
 
 built from ``lax.while_loop`` so the whole solve — matvecs, preconditioner
 applications, reductions — stages into one XLA computation.  No Python-level
-iteration: on TPU the GMRES inner loop is a single compiled program, and under
-``shard_map`` the same code runs multi-chip with ``psum`` reductions supplied
+iteration: the GMRES inner loop is a single compiled program, and under
+``shard_map`` the same code runs multi-device with ``psum`` reductions supplied
 by the sharded matvec closures.
 
 Reductions are mesh-aware: every solver takes ``axis_name``; under shard_map
 each solver sees only its local shard of the vectors and ``axis_name`` turns
-every inner product into a psum over the partition axis — the ICI replacement
-for the MPI_Allreduce dot products inside PETSc's KSP
+every inner product into a psum over the partition axis — the collective
+replacement for the MPI_Allreduce dot products inside PETSc's KSP
 (/root/reference/src/wbm.c:546; SURVEY.md §2).  The axis is an explicit
 parameter (no module state), so two meshes/axes can trace concurrently.
 
@@ -36,13 +36,21 @@ from .types import (CONVERGED_ITERATING, CONVERGED_ITS,
                     CONVERGED_RTOL_NORMAL, DIVERGED_BREAKDOWN,
                     DIVERGED_NANORINF, KSPResult, default_convergence_check)
 
+# Krylov-basis products (Gram-Schmidt, solution updates, inner products) in
+# full working precision: DEFAULT lets the GPU run f32 products in TF32
+# (about three decimal digits), which stalls the true residual near 1e-4
+# while the recurrence reports convergence.  These products are
+# memory-bound, so the precision costs nothing measurable.
+_HI = jax.lax.Precision.HIGHEST
+_mm = partial(jnp.matmul, precision=_HI)
+
 
 def _identity_pc(x):
     return x
 
 
 def _dot(a, b, axis_name=None):
-    d = jnp.vdot(a, b)
+    d = jnp.vdot(a, b, precision=_HI)
     if axis_name is not None:
         d = jax.lax.psum(d, axis_name)
     return d
@@ -55,7 +63,7 @@ def _norm(x, axis_name=None):
 def _gram(V, w, axis_name=None):
     """Basis-projection row of dot products <V_i, w> (psum'd when sharded;
     conjugated for complex scalars)."""
-    h = V.conj() @ w
+    h = _mm(V.conj(), w)
     if axis_name is not None:
         h = jax.lax.psum(h, axis_name)
     return h
@@ -65,8 +73,8 @@ def _gram_with_norm(V, w, axis_name=None):
     """(projection row, ||w||) fused into ONE collective — the extra scalar
     rides the same psum as the gram row, so the DGKS refinement test
     ('ifneeded') costs zero additional latency rounds on a mesh."""
-    h = V.conj() @ w
-    s = jnp.vdot(w, w)
+    h = _mm(V.conj(), w)
+    s = jnp.vdot(w, w, precision=_HI)
     hv = jnp.concatenate([h, jnp.reshape(s, (1,)).astype(h.dtype)])
     if axis_name is not None:
         hv = jax.lax.psum(hv, axis_name)
@@ -76,12 +84,12 @@ def _gram_with_norm(V, w, axis_name=None):
 def _dots(pairs, axis_name=None):
     """Fused inner products: one stacked psum for several <a_i, b_i>.
 
-    On a mesh every ``_dot`` is a separate latency-bound ICI round trip;
+    On a mesh every ``_dot`` is a separate latency-bound collective;
     independent reductions that the algorithm consumes together should ride
     ONE collective (the analogue of PETSc's split/pipelined KSP variants
     batching MPI_Allreduce calls).  Returns a tuple of scalars in pair order.
     """
-    d = jnp.stack([jnp.vdot(a, b) for a, b in pairs])
+    d = jnp.stack([jnp.vdot(a, b, precision=_HI) for a, b in pairs])
     if axis_name is not None:
         d = jax.lax.psum(d, axis_name)
     return tuple(d[i] for i in range(len(pairs)))
@@ -110,13 +118,13 @@ def _orthogonalize(V, w, mask, cgs_refinement, axis_name=None,
     """
     if cgs_refinement == "never":
         h = _gram(V, w, axis_name) * mask
-        w = w - h @ V
+        w = w - _mm(h, V)
         return w, h, _norm(w, axis_name)
     if cgs_refinement == "always":
         h = _gram(V, w, axis_name) * mask
-        w = w - h @ V
+        w = w - _mm(h, V)
         h2 = _gram(V, w, axis_name) * mask
-        w = w - h2 @ V
+        w = w - _mm(h2, V)
         return w, h + h2, _norm(w, axis_name)
     if cgs_refinement != "ifneeded":
         raise ValueError(
@@ -124,7 +132,7 @@ def _orthogonalize(V, w, mask, cgs_refinement, axis_name=None,
             "ifneeded, or always (-ksp_gmres_cgs_refinement_type)")
     hrow, wnorm0 = _gram_with_norm(V, w, axis_name)
     h = hrow * mask
-    w = w - h @ V
+    w = w - _mm(h, V)
     hj1 = _norm(w, axis_name)
     need = hj1 < 0.7071067811865476 * wnorm0
     if conv_sync_axis is not None:
@@ -133,7 +141,7 @@ def _orthogonalize(V, w, mask, cgs_refinement, axis_name=None,
     def _refine(args):
         w_, h_, _ = args
         h2 = _gram(V, w_, axis_name) * mask
-        w2 = w_ - h2 @ V
+        w2 = w_ - _mm(h2, V)
         return w2, h_ + h2, _norm(w2, axis_name)
 
     return jax.lax.cond(need, _refine, lambda a: a, (w, h, hj1))
@@ -213,7 +221,7 @@ def arnoldi_hessenberg(matvec: Callable, v0: jax.Array, m: int,
         # masked anyway for clarity
         h = _gram(V, w, axis_name)
         h = jnp.where(jnp.arange(m + 1) <= j, h, 0)
-        w = w - jnp.tensordot(h, V, axes=([0], [0]))
+        w = w - jnp.tensordot(h, V, axes=([0], [0]), precision=_HI)
         hj1 = norm(w)
         ok = hj1 > 1e3 * tiny
         H = H.at[:, j].set(h).at[j + 1, j].set(hj1.astype(dtype))
@@ -545,9 +553,9 @@ def _gmres_like(matvec, b, x0, pc_apply, *, restart, rtol, atol, divtol,
                 # matvec per iteration, opt-in
                 y = _lsq_update(H, g, j + 1)
                 if flexible:
-                    dx = y @ Z
+                    dx = _mm(y, Z)
                 else:
-                    dx = y @ V[:restart]
+                    dx = _mm(y, V[:restart])
                     if right:
                         dx = psolve(dx)
                 true_rn = norm(b - matvec(x + dx))
@@ -568,13 +576,13 @@ def _gmres_like(matvec, b, x0, pc_apply, *, restart, rtol, atol, divtol,
         # triangular in its leading j_end columns; mask the rest to identity
         y = _lsq_update(H, g, j_end)
         if flexible:
-            dx = y @ Z
+            dx = _mm(y, Z)
         else:
-            dx = y @ V[:restart]
+            dx = _mm(y, V[:restart])
             if right:
                 dx = psolve(dx)
         x = x + dx
-        # residual for the NEXT cycle; skipped (branch not executed on TPU)
+        # residual for the NEXT cycle; skipped (branch not executed)
         # when this cycle ended the solve — the SYNCED predicate, so a
         # replica forced into extra cycles refreshes r and keeps refining
         r = jax.lax.cond(_keep_iterating(reason, conv_sync_axis),
@@ -717,7 +725,7 @@ def lgmres(matvec: Callable, b: jax.Array, x0: Optional[jax.Array] = None,
             jax.lax.while_loop(inner_cond, inner_body, init)
 
         y = _lsq_update(H, g, j_end)
-        dx = y @ Z
+        dx = _mm(y, Z)
         x = x + dx
         if aug:
             # push this cycle's error approximation (normalized) into the
@@ -1097,7 +1105,7 @@ def cg(matvec: Callable, b: jax.Array, x0: Optional[jax.Array] = None,
         r = s["r"] - alpha * w
         z = psolve(r)
         # <r,z> and ||r||^2 ride one fused psum (identical values, one
-        # fewer ICI round trip per iteration on a mesh)
+        # fewer collective round trip per iteration on a mesh)
         rz_new, rr = _dots(((r, z), (r, r)), axis_name)
         beta = rz_new / jnp.where(s["rz"] != 0, s["rz"], 1.0)
         p = z + beta * s["p"]
@@ -1126,7 +1134,7 @@ def pipecg(matvec: Callable, b: jax.Array, x0: Optional[jax.Array] = None,
     mesh latency: every iteration issues exactly ONE fused reduction
     (<r,u>, <w,u>, <r,r> stacked into a single psum) and the reduction has no
     data dependency on that iteration's preconditioner apply ``m = M⁻¹w`` or
-    matvec ``n = A·m`` — XLA's scheduler can overlap the ICI collective with
+    matvec ``n = A·m`` — XLA's scheduler can overlap the collective with
     the local compute, the pipelining that PETSc implements with
     MPI_Iallreduce.  Plain ``cg`` costs 2 sequential psums per iteration plus
     a matvec and PC apply on the critical path.
@@ -1686,8 +1694,8 @@ def gcr(matvec: Callable, b: jax.Array, x0: Optional[jax.Array] = None,
         # iteration (the residual norm below uses the minimization identity
         # instead of a third psum).
         beta = _gram(AP, Ap, axis_name)                     # [m]
-        p = p - jnp.tensordot(beta, P, axes=([0], [0]))
-        Ap = Ap - jnp.tensordot(beta, AP, axes=([0], [0]))
+        p = p - jnp.tensordot(beta, P, axes=([0], [0]), precision=_HI)
+        Ap = Ap - jnp.tensordot(beta, AP, axes=([0], [0]), precision=_HI)
         # ||Ap||^2, <Ap, r>, and ||r||^2 ride one fused psum; the residual
         # norm after the minimizing step then needs NO third round:
         # r' ⊥ Ap  =>  ||r'||² = ||r||² − |<Ap,r>|²/||Ap||².  ||r||² is

@@ -39,6 +39,9 @@ import jax.numpy as jnp
 from .types import (CONVERGED_ITERATING, DIVERGED_BREAKDOWN, KSPResult,
                     default_convergence_check)
 
+# Krylov-basis products in full working precision (see solvers/krylov.py)
+_HI = jax.lax.Precision.HIGHEST
+
 
 def _cdot(a, b, axis_name=None):
     """Per-column inner products <a_j, b_j>: [n, r] x [n, r] -> [r]."""
@@ -50,7 +53,7 @@ def _cdot(a, b, axis_name=None):
 
 def _cdots(pairs, axis_name=None):
     """Fused per-column inner products: one stacked [k, r] psum for several
-    column-wise <a_j, b_j> families (one ICI round instead of k)."""
+    column-wise <a_j, b_j> families (one collective instead of k)."""
     d = jnp.stack([jnp.sum(jnp.conj(a) * b, axis=0) for a, b in pairs])
     if axis_name is not None:
         d = jax.lax.psum(d, axis_name)
@@ -277,7 +280,7 @@ def gmres_many(matvec: Callable, B: jax.Array,
                     divtol=divtol, maxit=maxit)
 
     def gram(V, w):
-        h = jnp.einsum("anr,nr->ar", jnp.conj(V), w)
+        h = jnp.einsum("anr,nr->ar", jnp.conj(V), w, precision=_HI)
         if axis_name is not None:
             h = jax.lax.psum(h, axis_name)
         return h
@@ -303,7 +306,7 @@ def gmres_many(matvec: Callable, B: jax.Array,
 
         def step(t, y):
             i = m - 1 - t
-            s = jnp.einsum("kr,kr->r", Hm[i], y)
+            s = jnp.einsum("kr,kr->r", Hm[i], y, precision=_HI)
             den = Hm[i, i]
             yi = (gm[i] - s) / jnp.where(den != 0, den, 1.0)
             return y.at[i].set(yi)
@@ -334,27 +337,27 @@ def gmres_many(matvec: Callable, B: jax.Array,
             mask = (jnp.arange(m + 1) <= j).astype(dtype)[:, None]
             if cgs_refinement == "always":
                 h = gram(V, w) * mask
-                w = w - jnp.einsum("ar,anr->nr", h, V)
+                w = w - jnp.einsum("ar,anr->nr", h, V, precision=_HI)
                 # one reorthogonalization pass (as the single-RHS gmres)
                 h2 = gram(V, w) * mask
-                w = w - jnp.einsum("ar,anr->nr", h2, V)
+                w = w - jnp.einsum("ar,anr->nr", h2, V, precision=_HI)
                 h = h + h2
                 hj1 = norm(w)                                 # [r]
             elif cgs_refinement == "never":
                 h = gram(V, w) * mask
-                w = w - jnp.einsum("ar,anr->nr", h, V)
+                w = w - jnp.einsum("ar,anr->nr", h, V, precision=_HI)
                 hj1 = norm(w)
             elif cgs_refinement == "ifneeded":
                 # pre-projection column norms ride the SAME psum as the
                 # gram block (one [m+2, r] reduction, zero extra rounds)
                 hw = jnp.concatenate(
-                    [jnp.einsum("anr,nr->ar", jnp.conj(V), w),
+                    [jnp.einsum("anr,nr->ar", jnp.conj(V), w, precision=_HI),
                      jnp.sum(jnp.conj(w) * w, axis=0)[None]], axis=0)
                 if axis_name is not None:
                     hw = jax.lax.psum(hw, axis_name)
                 h = hw[:-1] * mask
                 wnorm0 = jnp.sqrt(jnp.abs(jnp.real(hw[-1])))  # [r]
-                w = w - jnp.einsum("ar,anr->nr", h, V)
+                w = w - jnp.einsum("ar,anr->nr", h, V, precision=_HI)
                 hj1 = norm(w)
                 need = jnp.any(hj1 < 0.7071067811865476 * wnorm0)
                 if conv_sync_axis is not None:
@@ -364,7 +367,7 @@ def gmres_many(matvec: Callable, B: jax.Array,
                 def _refine(args):
                     w_, h_, _ = args
                     h2 = gram(V, w_) * mask
-                    w2 = w_ - jnp.einsum("ar,anr->nr", h2, V)
+                    w2 = w_ - jnp.einsum("ar,anr->nr", h2, V, precision=_HI)
                     return w2, h_ + h2, norm(w2)
 
                 w, h, hj1 = jax.lax.cond(need, _refine, lambda a: a,
@@ -423,7 +426,7 @@ def gmres_many(matvec: Callable, B: jax.Array,
 
         used = idx[:, None] < ic["jcol"][None, :]             # [m, r]
         y = back_sub(ic["H"], ic["g"], used)
-        dX = jnp.einsum("ar,anr->nr", y, ic["V"][:m])
+        dX = jnp.einsum("ar,anr->nr", y, ic["V"][:m], precision=_HI)
         if right:
             dX = psolve(dX)
         X = X + dX

@@ -19,6 +19,7 @@ from typing import Callable, Optional
 import jax
 import jax.numpy as jnp
 
+from ..utils.jit import jit_closure
 from ..utils.options import Options
 from ..utils.registry import SOLVERS
 from .operator import as_matvec
@@ -68,7 +69,7 @@ def make_solver(A, *, pmat=None, options: Optional[Options] = None,
     """Compose (operator, preconditioner, method) once; return solve(b, x0).
 
     The returned closure is jitted, so repeated solves amortize setup and
-    compilation — the TPU analogue of reusing a configured KSP object.
+    compilation — the analogue of reusing a configured KSP object.
 
     ``transpose=True`` solves A^T x = b (PETSc KSPSolveTranspose): the
     operator transposes host-side and the preconditioner applies M^{-T}
@@ -95,7 +96,7 @@ def make_solver(A, *, pmat=None, options: Optional[Options] = None,
         nullspace, transpose_nullspace = (
             transpose_nullspace if transpose_nullspace is not None
             else nullspace, nullspace)
-    # -mat_matvec_impl auto|banded_pallas|blocktri|xla: operator SpMV route
+    # -mat_matvec_impl auto|blocktri|xla: operator SpMV route
     # (the MatMult engine of the hot loop, /root/reference/src/testbed.c:310)
     matvec, n, op_dtype = as_matvec(
         A, n_hint=n_hint, impl=opts.get_string("mat_matvec_impl", "auto"))
@@ -206,7 +207,7 @@ def make_solver(A, *, pmat=None, options: Optional[Options] = None,
             res = _dc.replace(res, x=ns.remove(res.x))
         return res
 
-    return jax.jit(_solve) if jit else _solve
+    return jit_closure(_solve) if jit else _solve
 
 
 def make_solver_many(A, *, pmat=None, options: Optional[Options] = None,
@@ -255,8 +256,8 @@ def make_solver_many(A, *, pmat=None, options: Optional[Options] = None,
             transpose_nullspace if transpose_nullspace is not None
             else nullspace, nullspace)
     # true multi-RHS operator apply: the operator streams once per iteration
-    # for ALL r columns (as_matvec_many routes wide TPU bands through batched
-    # [b,b]@[b,r] MXU matmuls; a vmap of the single-RHS matvec would
+    # for ALL r columns (as_matvec_many routes wide bands through batched
+    # [b,b]@[b,r] products; a vmap of the single-RHS matvec would
     # re-stream it per column)
     from .operator import as_matvec_many
     matvec_many, n, op_dtype = as_matvec_many(
@@ -299,7 +300,7 @@ def make_solver_many(A, *, pmat=None, options: Optional[Options] = None,
             res = _dc.replace(res, x=ns.remove(res.x))
         return res
 
-    return jax.jit(_solve) if jit else _solve
+    return jit_closure(_solve) if jit else _solve
 
 
 def solve_many(A, B, X0=None, *, pmat=None,

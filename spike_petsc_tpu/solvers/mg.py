@@ -1,7 +1,7 @@
 """Geometric multigrid preconditioner for banded operators (PCMG role).
 
 The reference reaches multigrid through PETSc's registry (``-pc_type mg``);
-here the capability is rebuilt TPU-first for the banded operators this
+here the capability is rebuilt for the banded operators this
 framework owns:
 
 * **Hierarchy**: 1-D factor-2 coarsening with linear interpolation P and

@@ -60,8 +60,9 @@ class NullSpace:
         q = self.vecs.astype(v.dtype)
         if jnp.iscomplexobj(v):
             q = q.astype(v.dtype)
-        coeff = jnp.conj(q).T @ v
-        return v - q @ coeff
+        hi = jax.lax.Precision.HIGHEST
+        coeff = jnp.matmul(jnp.conj(q).T, v, precision=hi)
+        return v - jnp.matmul(q, coeff, precision=hi)
 
 
 jax.tree_util.register_dataclass(

@@ -152,9 +152,9 @@ def pc_jacobi(pmat, opts: Options) -> PC:
 def pc_sor(pmat, opts: Options) -> PC:
     """Block-SSOR preconditioner (PETSc ``-pc_type sor`` role).
 
-    TPU-first design note: PETSc's PCSOR is a POINTWISE Gauss-Seidel
-    relaxation — a scalar recurrence over rows, hostile to the MXU.  Here
-    the splitting is at MXU-block granularity: the band is viewed as
+    Design note: PETSc's PCSOR is a POINTWISE Gauss-Seidel relaxation — a
+    scalar recurrence over rows, hostile to batched matrix units.  Here
+    the splitting is at block granularity: the band is viewed as
     block-tridiagonal (``-pc_sor_block``, default = the bandwidth) and one
     symmetric sweep applies
 
@@ -265,8 +265,9 @@ def pc_sor(pmat, opts: Options) -> PC:
 
 
 def _newton_probe_active(inverter: str) -> bool:
-    return inverter in ("newton", "newton_fixed", "newton_pan") or (
-        inverter == "auto" and jax.default_backend() == "tpu")
+    from ..ops.blocktri import resolve_inverter
+    return resolve_inverter(inverter) in ("newton", "newton_fixed",
+                                          "newton_pan")
 
 
 def _probe_tolerance(store_dtype, spike_dtype) -> float:
@@ -336,9 +337,9 @@ def _spike_pc(pmat, opts: Options, *, name: str, default_K: int,
     store_dtype = _dt[opts.get_string(f"pc_{name}_store_dtype", "")]
     spike_dtype = _dt[opts.get_string(f"pc_{name}_spike_dtype", "")]
     # -pc_<name>_factor_dtype casts the BAND before factoring (vs
-    # store_dtype, which casts the finished factor): the TPU high-accuracy
-    # recipe keeps the operator f64 (emulated, matvec-only) while the whole
-    # factorization runs in native f32 — PCApply casts at the boundary, so
+    # store_dtype, which casts the finished factor): the mixed-precision
+    # recipe keeps the operator f64 (matvec-only) while the whole
+    # factorization runs in f32 — PCApply casts at the boundary, so
     # any f64 KSP (richardson refinement, gmres) composes untouched
     orig_dtype = band.dtype
     factor_dtype = _dt[opts.get_string(f"pc_{name}_factor_dtype", "")]
@@ -656,7 +657,7 @@ def pc_asm(pmat, opts: Options) -> PC:
     faster-converging (Cai–Sarkis RAS); "basic" scatter-adds the full
     overlapped solutions.
 
-    TPU shape: the overlapped windows concatenate into ONE banded operator
+    Shape: the overlapped windows concatenate into ONE banded operator
     factored by ``spike_factor(K partitions, truncated=True)`` — partition
     boundaries fall exactly on window boundaries, so the truncation drops
     precisely the couplings ASM's local Dirichlet problems drop, and the

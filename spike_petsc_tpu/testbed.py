@@ -90,24 +90,14 @@ def main(argv=None) -> int:
 def _main(argv=None) -> int:
     opts = Options.from_argv(sys.argv[1:] if argv is None else argv)
     platform = opts.get_string("platform")
+    import jax
     if opts.get_bool("x64", False):
-        import jax
+        # native f64 on every backend (the PETSc-parity configuration)
         jax.config.update("jax_enable_x64", True)
-        # TPU XLA implements LuDecomposition only for f32/c64; f64 runs (the
-        # PETSc-parity configuration) route to the host CPU backend unless the
-        # user explicitly pins a platform.  On-TPU f64-grade accuracy is
-        # available via mixed-precision refinement: -x64 1 -platform tpu
-        # -ksp_type richardson -pc_type spike -pc_spike_factor_dtype f32
-        # (f32 factors, emulated-f64 operator residuals; docs/HOWTO.md).
-        if not platform:
-            platform = "cpu"
-            print("x64 requested: running on cpu backend "
-                  "(override with -platform tpu and add "
-                  "-pc_<name>_factor_dtype f32 for on-TPU f64 refinement)",
-                  file=sys.stderr)
     if platform:
-        import jax
         jax.config.update("jax_platforms", platform)
+    from .utils.platform import enable_compile_cache
+    enable_compile_cache()
 
     from .utils.profiling import scope, stage_report
 

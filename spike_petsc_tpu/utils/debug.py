@@ -4,7 +4,7 @@ shadow runs.
 The reference's failure model is fail-fast SETERRQ plus MC64's structured
 INFO(1) codes (+1 structurally singular, +2 scaling overflow,
 /root/reference/src/hslmc64.c:259-287), and its only memory/race tooling is
-CHKMEMQ probes (/root/reference/src/wbm.c:254).  On TPU the analogous hazards
+CHKMEMQ probes (/root/reference/src/wbm.c:254).  On a device the hazards
 are numerical: singular Schur pivots inside jit, silent f32 degradation,
 NaN propagation.  These helpers surface them as typed results rather than
 exceptions inside jit (SURVEY.md §5).

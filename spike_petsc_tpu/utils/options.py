@@ -4,7 +4,7 @@ The reference drives every component from a single string-keyed options
 database with hierarchical prefixes (see /root/reference/src/testbed.c:41-53,
 /root/reference/src/matbanded.c:278-281 ``banded_`` prefix,
 /root/reference/src/kspreorder.c:218-221 ``reorder_`` prefix).  This module
-provides the TPU framework's equivalent: a plain dict-backed database with
+provides the framework's equivalent: a plain dict-backed database with
 
 * typed getters (`get_int`, `get_real`, `get_bool`, `get_string`),
 * hierarchical prefixes so nested solvers are configurable by name

@@ -2,7 +2,7 @@
 
 The reference delegates tracing to PETSc: PetscInfo event notes, per-function
 stack tracing, -log_summary stage logging (SURVEY.md §5;
-/root/reference/src/matbanded.c:175).  TPU equivalents provided here:
+/root/reference/src/matbanded.c:175).  Equivalents provided here:
 
 * ``scope(name)`` — named trace annotation: shows up in the JAX/XLA profiler
   timeline (jax.named_scope) AND accumulates host-side wall-clock per stage
@@ -10,7 +10,7 @@ stack tracing, -log_summary stage logging (SURVEY.md §5;
 * ``log_event`` / ``event_log`` — structured event records (phase, matrix
   size, bandwidth, residuals) replacing PetscInfo prints.
 * ``start_trace``/``stop_trace`` — thin wrappers over jax.profiler for
-  capturing device traces on TPU.
+  capturing device traces.
 * ``stage_report()`` — per-stage cumulative wall-clock/hit-count table.
 """
 

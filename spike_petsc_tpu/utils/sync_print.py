@@ -2,7 +2,7 @@
 
 The reference prints per-rank diagnostics in rank order via
 ``PetscSynchronizedPrintf/Flush`` (/root/reference/src/wbm.c:294,395).  The
-TPU-native equivalent cannot let every device write to stdout (callbacks
+mesh equivalent cannot let every device write to stdout (callbacks
 arrive in arbitrary order); instead the values are all-gathered over the
 mesh axis and printed ONCE, in rank order, from the axis's first device.
 

@@ -118,7 +118,7 @@ def test_config4_general_sparse_fiedler_dropoff():
 
 
 def test_config5_multichip_spike():
-    """Multi-chip SPIKE: per-chip band partitions, reduced system via ICI
+    """Multi-chip SPIKE: per-chip band partitions, reduced system via an
     all-gather — on the virtual 8-device mesh."""
     from spike_petsc_tpu.parallel import (dist_spike_factor, make_dist_solver,
                                           make_mesh)

@@ -211,7 +211,7 @@ def test_dist_batched_refinement_recovers_bf16(mesh):
 
 def test_multislice_stored_spikes_and_bf16():
     """Multislice factor accepts the parity options: stored PC-tip spikes
-    (ICI-only 1-sweep PCApply) and bf16 spike storage."""
+    (intra-slice 1-sweep PCApply) and bf16 spike storage."""
     from spike_petsc_tpu.parallel import (dist_spike_factor_multislice,
                                           make_dist_solver_multislice,
                                           make_mesh_multislice)

@@ -189,7 +189,7 @@ def test_persistent_fault_halves_after_one_same_size_retry():
 
 def test_multislice_slice_loss_recovery():
     """Elastic solves on a (slice, p) mesh: recovery drops whole slices —
-    the unit TPU pods actually lose — keeping the per-slice ICI width
+    the unit a multi-host deployment loses — keeping the per-slice width
     fixed.  A persistent fault (healthy probe) retries once at full size,
     then drops to one slice and converges there."""
     a, bm, u, rhs = _problem(n=768, k=4, seed=8)

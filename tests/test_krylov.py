@@ -221,9 +221,9 @@ def test_gmres_true_residual_monitor():
     assert not np.allclose(ph[:its + 1], th[:its + 1])
 
 
-def test_as_matvec_blocktri_pallas_route(monkeypatch):
-    """Wide banded operators on TPU route through the block-tridiagonal
-    Pallas matvec (6x the shifted-axpy form); parity with banded_matvec."""
+def test_as_matvec_blocktri_pallas_route():
+    """impl='blocktri' converts the band once to block-tridiagonal form and
+    applies batched block products; parity with banded_matvec."""
     import jax
     from spike_petsc_tpu.solvers import operator as op_mod
     from spike_petsc_tpu.ops.band import BandedMatrix, banded_matvec
@@ -231,22 +231,22 @@ def test_as_matvec_blocktri_pallas_route(monkeypatch):
     n, k = 700, 20
     w = 2 * k + 1
     key = jax.random.PRNGKey(3)
-    data = jax.random.uniform(key, (n, w), jnp.float64)
+    data = jax.random.uniform(key, (n, w), jnp.float32)
     bm = BandedMatrix(data=data, kl=k, ku=k)
-    x = jax.random.uniform(jax.random.fold_in(key, 1), (n,), jnp.float64)
+    x = jax.random.uniform(jax.random.fold_in(key, 1), (n,), jnp.float32)
     ref = banded_matvec(bm, x)
-    monkeypatch.setattr(op_mod, "_use_blocktri_matvec", lambda: True)
-    mv, nn, _ = op_mod.as_matvec(bm)
-    assert nn == n
+    mv, nn, _ = op_mod.as_matvec(bm, impl="blocktri")
+    assert nn == n and mv._route == "blocktri"
     np.testing.assert_allclose(np.asarray(mv(x)), np.asarray(ref),
-                               rtol=1e-13, atol=1e-13)
+                               rtol=1e-5, atol=1e-5)
 
 
-def test_as_matvec_impl_routing(monkeypatch):
-    """-mat_matvec_impl selects the banded operator route: banded_pallas
-    (diagonal-major Pallas kernel), blocktri (forced conversion), xla —
-    all parity with banded_matvec; infeasible requests degrade to xla."""
+def test_as_matvec_impl_routing():
+    """-mat_matvec_impl selects the banded operator route: blocktri (forced
+    conversion), xla, auto — all parity with banded_matvec; an explicit
+    route the operator cannot take raises instead of degrading."""
     import jax
+    import pytest
     from spike_petsc_tpu.solvers import operator as op_mod
     from spike_petsc_tpu.ops.band import BandedMatrix, banded_matvec
     from spike_petsc_tpu.solvers.ksp import solve
@@ -260,21 +260,19 @@ def test_as_matvec_impl_routing(monkeypatch):
     bm = BandedMatrix(data=data, kl=k, ku=k)
     x = jax.random.uniform(jax.random.fold_in(key, 1), (n,), jnp.float32)
     ref = np.asarray(banded_matvec(bm, x))
-    monkeypatch.setattr(op_mod, "_use_blocktri_matvec", lambda: True)
-    for impl in ("banded_pallas", "blocktri", "xla", "auto"):
+    for impl in ("blocktri", "xla", "auto"):
         mv, nn, _ = op_mod.as_matvec(bm, impl=impl)
         assert nn == n
         np.testing.assert_allclose(np.asarray(mv(x)), ref,
                                    rtol=2e-5, atol=2e-5, err_msg=impl)
-    # f64 pallas request degrades to the XLA form instead of raising
+    # an f64 band cannot take the f32 blocktri conversion: explicit raises
     bm64 = BandedMatrix(data=data.astype(jnp.float64), kl=k, ku=k)
-    mv64, _, _ = op_mod.as_matvec(bm64, impl="banded_pallas")
-    np.testing.assert_allclose(np.asarray(mv64(x.astype(jnp.float64))), ref,
-                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="blocktri"):
+        op_mod.as_matvec(bm64, impl="blocktri")
     # and the option threads through the options-driven solve surface
     u = jnp.ones((n,), jnp.float32)
     b = banded_matvec(bm, u)
-    res = solve(bm, b, options=Options({"mat_matvec_impl": "banded_pallas",
+    res = solve(bm, b, options=Options({"mat_matvec_impl": "blocktri",
                                         "ksp_rtol": 1e-8}),
                 ksp_type="gmres", pc_type="jacobi")
     assert int(res.reason) > 0

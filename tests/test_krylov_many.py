@@ -211,8 +211,7 @@ def test_as_matvec_many_routes_and_parity(monkeypatch):
     ref = np.stack([np.asarray(banded_matvec(bm, X[:, j]))
                     for j in range(r)], axis=1)
 
-    # wide band + "TPU": the true multi-RHS blocktri route
-    monkeypatch.setattr(op_mod, "_use_blocktri_matvec", lambda: True)
+    # wide band: the true multi-RHS blocktri route
     mvm, nn, _ = op_mod.as_matvec_many(bm)
     assert nn == n and mvm._route == "blocktri_many"
     np.testing.assert_allclose(np.asarray(mvm(X)), ref, rtol=2e-5, atol=2e-5)
@@ -230,10 +229,9 @@ def test_as_matvec_many_routes_and_parity(monkeypatch):
     np.testing.assert_allclose(np.asarray(mva(X)), ref_n,
                                rtol=2e-5, atol=2e-5)
 
-    # off-"TPU": wide band falls back to vmap too
-    monkeypatch.setattr(op_mod, "_use_blocktri_matvec", lambda: False)
-    mvc, _, _ = op_mod.as_matvec_many(bm)
-    assert mvc._route.startswith("vmap_")
+    # an explicit band-form request keeps the vmapped single-RHS route
+    mvc, _, _ = op_mod.as_matvec_many(bm, impl="xla")
+    assert mvc._route == "vmap_xla"
     np.testing.assert_allclose(np.asarray(mvc(X)), ref, rtol=2e-5, atol=2e-5)
 
     # dense batches natively
@@ -254,7 +252,6 @@ def test_make_solver_many_blocktri_many_route(monkeypatch):
     from spike_petsc_tpu.solvers import operator as op_mod
     from spike_petsc_tpu.solvers.ksp import make_solver
 
-    monkeypatch.setattr(op_mod, "_use_blocktri_matvec", lambda: True)
     n, k, r = 1536, 48, 3
     w = 2 * k + 1
     key = jax.random.PRNGKey(11)
@@ -293,7 +290,6 @@ def test_make_solver_many_f64_vmap_fallback(monkeypatch):
     from spike_petsc_tpu.solvers import operator as op_mod
     from spike_petsc_tpu.solvers.ksp import make_solver
 
-    monkeypatch.setattr(op_mod, "_use_blocktri_matvec", lambda: True)
     n, k, r = 1536, 48, 3
     w = 2 * k + 1
     key = jax.random.PRNGKey(11)

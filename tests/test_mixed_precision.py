@@ -95,9 +95,8 @@ def test_factor_dtype_refinement_reaches_f64_grade():
     """-pc_spike_factor_dtype f32 on an f64 operator: the band is cast and
     factored in f32 while PCApply casts at the boundary, so a plain f64
     richardson becomes mixed-precision iterative refinement reaching
-    f64-grade residuals (the TPU high-accuracy recipe; on TPU the inner
-    solve additionally traces under jax.enable_x64(False) because Pallas
-    cannot lower i64 — SURVEY §7 hard-part 3)."""
+    f64-grade residuals (the mixed-precision refinement recipe, SURVEY §7
+    hard-part 3)."""
     from spike_petsc_tpu import Options
     from spike_petsc_tpu.solvers.ksp import solve
 

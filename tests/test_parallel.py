@@ -69,8 +69,7 @@ def test_dist_matvec_halo_exchange(mesh, ppd):
 
 
 def test_dist_parts_per_device(mesh):
-    """K = 32 partitions over 8 devices (4 per device) — the v5p-8
-    deployment shape."""
+    """K = 32 partitions over 8 devices (4 per device)."""
     n = 1280
     a = problems.spd_banded(n, 4, seed=11)
     bm = banded_of(a)
@@ -203,9 +202,9 @@ def test_dist_reduced_cr_large_K(mesh):
 
 
 def test_multislice_layout():
-    """(slice, p) mesh: exact SPIKE within a slice (ICI-only PC),
-    block-Jacobi across slices, exact cross-slice matvec (SURVEY §5 DCN
-    row; VERDICT r1 item 8)."""
+    """(slice, p) mesh: exact SPIKE within a slice (no cross-slice
+    traffic in the PC), block-Jacobi across slices, exact cross-slice
+    matvec."""
     from spike_petsc_tpu.parallel import (
         make_mesh_multislice, dist_spike_factor_multislice,
         make_dist_solver_multislice)
@@ -234,24 +233,21 @@ def test_multislice_layout():
 
 @pytest.mark.slow
 @pytest.mark.parametrize("ppd", [1, 2])
-def test_dist_matvec_banded_pallas_route(mesh, ppd):
-    """matvec_impl='banded_pallas': the diagonal-major kernel covers every
-    intra-device coupling (the band keeps what band_to_blocktri zeroes) and
-    only the two k-wide DEVICE-edge strips ride ppermute.  Parity against
-    the blocks route and the host oracle; f32 (the kernel is fixed-width
-    only).  Asymmetric band exercises the kl != ku tip orientation."""
+def test_dist_local_matvec_route(mesh, ppd):
+    """The distributed Krylov matvec: per-partition block products plus
+    tip corrections, with the k-wide device-edge strips over ppermute.
+    Parity against the host oracle in f32; the asymmetric band exercises
+    the kl != ku tip orientation."""
     from spike_petsc_tpu.parallel.spike_dist import (_dsf_specs,
                                                      _pad_shard_rhs,
                                                      local_matvec,
                                                      make_dist_solver)
-    n = 8192        # the kernel needs >= 2*128 local rows per device
+    n = 8192
     a = problems.nonsym_banded(n, 3, 2, seed=3)
     bm32 = BandedMatrix(
         data=jnp.asarray(np.asarray(banded_of(a).data), jnp.float32),
         kl=3, ku=2)
-    dsf = dist_spike_factor(bm32, mesh, block_b=8, parts_per_device=ppd,
-                            matvec_impl="banded_pallas")
-    assert dsf.mv_d3 is not None
+    dsf = dist_spike_factor(bm32, mesh, block_b=8, parts_per_device=ppd)
     rng = np.random.default_rng(2)
     x = rng.standard_normal(n).astype(np.float32)
     x_sh = _pad_shard_rhs(dsf, mesh, "p", jnp.asarray(x))
@@ -265,7 +261,7 @@ def test_dist_matvec_banded_pallas_route(mesh, ppd):
     y = np.asarray(y).reshape(-1)[:n]
     np.testing.assert_allclose(y, (a @ x).astype(np.float32),
                                rtol=2e-5, atol=2e-5)
-    # end-to-end distributed Krylov riding the banded matvec
+    # end-to-end distributed Krylov riding the same matvec
     u = rng.standard_normal(n).astype(np.float32)
     rhs = jnp.asarray((a @ u).astype(np.float32))
     res = make_dist_solver(dsf, mesh, ksp_type="gmres", rtol=1e-5)(rhs)
@@ -273,25 +269,22 @@ def test_dist_matvec_banded_pallas_route(mesh, ppd):
 
 
 @pytest.mark.slow
-def test_multislice_matvec_banded_pallas_route():
-    """matvec_impl='banded_pallas' on a (slice, p) mesh: the edge strips
-    ride the flattened (slice, p) ring, so the kernel route carries the
-    same cross-slice traffic as the blocks route.  Parity against the host
-    oracle + end-to-end multislice Krylov."""
+def test_multislice_local_matvec_route():
+    """The matvec on a (slice, p) mesh: the edge strips ride the flattened
+    (slice, p) ring.  Parity against the host oracle + end-to-end
+    multislice Krylov."""
     from spike_petsc_tpu.parallel import (dist_spike_factor_multislice,
                                           make_dist_solver_multislice,
                                           make_mesh_multislice)
     from spike_petsc_tpu.parallel.spike_dist import (_multislice_specs,
                                                      local_matvec_multislice)
-    n = 8192        # the kernel needs >= 2*128 local rows per device
+    n = 8192
     a = problems.nonsym_banded(n, 3, 2, seed=5)
     bm32 = BandedMatrix(
         data=jnp.asarray(np.asarray(banded_of(a).data), jnp.float32),
         kl=3, ku=2)
     mesh = make_mesh_multislice((2, 4))
-    dsf = dist_spike_factor_multislice(bm32, mesh, block_b=8,
-                                       matvec_impl="banded_pallas")
-    assert dsf.mv_d3 is not None
+    dsf = dist_spike_factor_multislice(bm32, mesh, block_b=8)
     rng = np.random.default_rng(6)
     x = rng.standard_normal(n).astype(np.float32)
     xp = jnp.zeros((dsf.K * dsf.m,), jnp.float32).at[:n].set(

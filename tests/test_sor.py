@@ -1,4 +1,4 @@
-"""Block-SSOR preconditioner (PCSOR role, MXU-block granularity)."""
+"""Block-SSOR preconditioner (PCSOR role, dense-block granularity)."""
 
 import numpy as np
 import pytest

@@ -343,8 +343,8 @@ def test_spike_transpose_truncated_and_complex():
 def test_spike_transpose_regular_form_with_band(K):
     """spike_transpose(band=...) builds the REGULAR-form transposed factor
     (F' = (Sinv U)^T, Sinv' = Sinv^T, U' = L^T shifted — the standard
-    sweeps then compute the transpose solve, fused Pallas kernel included
-    on TPU) instead of the XLA-scan marker wrapper."""
+    sweeps then compute the transpose solve, the Pallas sweep kernels
+    included on the GPU) instead of the XLA-scan marker wrapper."""
     from spike_petsc_tpu.ops.blocktri import BlockTriFactor
     from spike_petsc_tpu.ops.spike import spike_transpose
 
